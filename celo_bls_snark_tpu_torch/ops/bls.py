@@ -1,0 +1,138 @@
+"""BLS verification pipelines on the card (the PyTorch counterpart of the
+main-path functions of the JAX package's ops/bls.py; reference:
+crates/bls-crypto/src/bls/{public,signature,batch}.rs).
+
+Message hashing runs on the host (hash_to_curve/); these functions consume
+message HASH POINTS, as the reference's `batch_verify_hashes` does.
+"""
+
+import torch
+
+from ..hostmath import curves as hostcurves
+from ..hostmath.params import G2_GENERATOR
+from ..utils.tree import tree_map
+from .field import FQ
+from . import curve as dc
+from . import pairing as dp
+from . import tower as tw
+
+
+def cat_lanes(a, b):
+    """Two trees of [n, B] tensors -> one tree, lanes of `a` then `b`."""
+    return tree_map(lambda x, y: torch.cat([x, y], dim=-1), a, b)
+
+
+def pack_g1_affine(points, device):
+    """Host affine G1 points (None = infinity -> (0,0)) -> (x, y) tensors."""
+    xs = [0 if p is None else p[0] for p in points]
+    ys = [0 if p is None else p[1] for p in points]
+    return (FQ.pack(xs, device), FQ.pack(ys, device))
+
+
+def pack_g2_affine(points, device):
+    xs0 = [0 if p is None else p[0][0] for p in points]
+    xs1 = [0 if p is None else p[0][1] for p in points]
+    ys0 = [0 if p is None else p[1][0] for p in points]
+    ys1 = [0 if p is None else p[1][1] for p in points]
+    return (
+        (FQ.pack(xs0, device), FQ.pack(xs1, device)),
+        (FQ.pack(ys0, device), FQ.pack(ys1, device)),
+    )
+
+
+def neg_g2_gen_affine(device, batch=1):
+    """-g2 as an affine batch (for the e(sigma, -g2) leg)."""
+    neg = hostcurves.G2.neg(G2_GENERATOR)
+    return pack_g2_affine([neg] * batch, device)
+
+
+def batch_verify_hashes_device(sig_aff, pubkeys_aff, hashes_aff):
+    """e(sigma, -g2) * prod_i e(H_i, pk_i) == 1 (BDN18, n+1 pairings, one
+    final exponentiation) — signature.rs:125-155, fully batched.
+
+    sig_aff: (x, y) with batch 1; pubkeys_aff: G2 affine batch [B];
+    hashes_aff: G1 affine batch [B]. Returns a bool tensor of shape [1]."""
+    negg2 = neg_g2_gen_affine(sig_aff[0].device)
+    return dp.pairing_check_product(
+        cat_lanes(sig_aff, hashes_aff), cat_lanes(negg2, pubkeys_aff)
+    )
+
+
+def _call(name, fn):
+    return fn()
+
+
+def batch_verify_grouped_stages(sigs_jac, hashes_jac, apks_aff, groups: int,
+                                stage=_call):
+    """batch_verify_grouped_device with its intermediates: returns a dict
+    with the affine P legs `p_aff`, the Miller-loop output `miller`, the
+    tree product `product`, the final-exponentiation output `final_exp`
+    and the verdict `ok` (bool tensor [1]).
+
+    Each stage runs as `stage(name, fn)`, which must return `fn()`; a
+    caller passes its own to time or count the stages (fold, to_affine,
+    miller, product, final_exp, is_one) of exactly this pipeline."""
+
+    def fold():
+        # [sig groups | hash groups] -> 2G partial sums in one fused fold
+        partials = dc.g1.msum_groups(
+            cat_lanes(sigs_jac, hashes_jac), 2 * groups, fold_lanes=1024
+        )
+        sig_parts = tree_map(lambda x: x[..., :groups], partials)
+        hsums = tree_map(lambda x: x[..., groups:], partials)
+        asig = dc.g1.msum(sig_parts) if groups > 1 else sig_parts
+        return cat_lanes(asig, hsums)
+
+    folded = stage("fold", fold)
+    p_aff = stage("to_affine", lambda: dc.g1.to_affine(folded))
+    q_aff = cat_lanes(neg_g2_gen_affine(p_aff[0].device), apks_aff)
+    miller = stage("miller", lambda: dp.miller_loop_batch(p_aff, q_aff))
+    product = stage("product", lambda: dp.f12_product(miller))
+    final_exp = stage("final_exp", lambda: dp.final_exponentiation(product))
+    return {
+        "p_aff": p_aff,
+        "miller": miller,
+        "product": product,
+        "final_exp": final_exp,
+        "ok": stage("is_one", lambda: tw.f12_is_one(final_exp)),
+    }
+
+
+def batch_verify_grouped_device(sigs_jac, hashes_jac, apks_aff, groups: int):
+    """Block-sync batch verification with per-group hash aggregation — the
+    batched form of `batch_verify_signature` (bls-snark-sys
+    signatures.rs:280-333 -> signature.rs:101-155).
+
+    Lanes are grouped by distinct (aggregated) public key: G contiguous
+    blocks of B = lanes/G messages, message i of group g signed by apk_g.
+    Within a group the pairing legs share Q = apk_g, so
+      prod_i e(H_i, apk_g) == e(sum_i H_i, apk_g)
+    and the reference's (n+1)-pairing equation collapses EXACTLY to G+1
+    pairings: e(sum_all sigs, -g2) * prod_g e(Hsum_g, apk_g) == 1.
+
+    sigs_jac / hashes_jac: G1 projective batches [G*B]; apks_aff: G2 affine
+    batch [G]. Returns a bool tensor of shape [1]."""
+    return batch_verify_grouped_stages(sigs_jac, hashes_jac, apks_aff, groups)["ok"]
+
+
+def verify_pairs_device(p_aff, q_aff):
+    """Independent 2-pairing checks, fully batched: lanes 2i and 2i+1 form
+    check i, e(P_{2i}, Q_{2i}) * e(P_{2i+1}, Q_{2i+1}) == 1. One batched
+    Miller pass + ONE batched final exponentiation for all checks (the
+    batched form of PublicKey::verify, public.rs:90-117). Returns bool
+    [B/2]."""
+    f = dp.miller_loop_batch(p_aff, q_aff)
+    even = tree_map(lambda x: x[..., 0::2], f)
+    odd = tree_map(lambda x: x[..., 1::2], f)
+    e = dp.final_exponentiation(tw.f12_mul(even, odd))
+    return tw.f12_is_one(e)
+
+
+def aggregate_g2_device(pubkeys_jac):
+    """Sum of a projective G2 batch -> batch-1 point (PublicKey::aggregate)."""
+    return dc.g2.msum(pubkeys_jac)
+
+
+def aggregate_g1_device(sigs_jac):
+    """Sum of a projective G1 batch -> batch-1 point (Signature::aggregate)."""
+    return dc.g1.msum(sigs_jac)

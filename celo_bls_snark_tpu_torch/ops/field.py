@@ -1,0 +1,489 @@
+"""Batched prime-field arithmetic: lazy-redundant 16-bit limbs, Montgomery
+form, guard-limb headroom (the PyTorch counterpart of the JAX package's
+ops/field.py).
+
+Layout: a field-element batch is an int32 tensor of shape [n_limbs, B],
+limbs on the leading axis, batch on the last.
+
+  LAZY REDUNDANT REPRESENTATION. add/sub/neg/small-scalar ops are plain
+  elementwise int32 arithmetic. Limbs may grow to |l| < 2^26 and the value
+  may drift within (-LAZY_P_BUDGET p, LAZY_P_BUDGET p). All normalization
+  happens inside the Montgomery multiply, which adds the offset
+  LAZY_P_BUDGET * p and renormalizes.
+
+  GUARD LIMB. Each field has one 16-bit limb beyond its modulus, so that
+  inputs below 2 * LAZY_P_BUDGET * p still give outputs < 2p. Multiply
+  outputs are canonical limbs (< 2^16) of a value < 2p.
+
+Two kernels carry every multiply and zero test, each behind a wrapper that
+routes by the tensor's device: a CPU tensor goes to the plain PyTorch
+version beside the kernel, a CUDA tensor to the kernel (csrc/field.cu),
+anything else raises. There is no fallback from the card to the plain
+version.
+
+  mont_mul   lazy a, b -> canonical limbs of (A B + m p) / R, where
+             A = a + 256p, B = b + 256p and m = -A B p^-1 mod R
+  mont_redc  lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
+
+Host oracle: hostmath/fp.py.
+"""
+
+import numpy as np
+import torch
+
+from ..hostmath.params import P, R, BW6_P
+from . import kernels
+
+LIMB_BITS = 16
+LIMB_MASK = (1 << LIMB_BITS) - 1
+LAZY_P_BUDGET = 256  # |value| < LAZY_P_BUDGET * p between multiplies
+
+
+def int_to_limbs(v: int, n: int) -> np.ndarray:
+    out = np.zeros(n, dtype=np.int32)
+    for i in range(n):
+        out[i] = (v >> (LIMB_BITS * i)) & LIMB_MASK
+    return out
+
+
+def limbs_to_int(limbs) -> int:
+    v = 0
+    for i, l in enumerate(np.asarray(limbs, dtype=np.int64)):
+        v += int(l) << (LIMB_BITS * i)
+    return v
+
+
+def _as_numpy(arr) -> np.ndarray:
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().cpu().numpy()
+    return np.asarray(arr)
+
+
+class FieldSpec:
+    """Constants of one prime field (with guard limb)."""
+
+    def __init__(self, modulus: int, name: str):
+        self.modulus = modulus
+        self.name = name
+        self.bits = modulus.bit_length()
+        self.n = (self.bits + LIMB_BITS - 1) // LIMB_BITS + 1
+        self.mont_r = (1 << (LIMB_BITS * self.n)) % modulus
+        self.mont_r2 = self.mont_r * self.mont_r % modulus
+        self.n0inv = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+        nprime = (-pow(modulus, -1, 1 << (LIMB_BITS * self.n))) % (
+            1 << (LIMB_BITS * self.n)
+        )
+        self.p_limbs = int_to_limbs(modulus, self.n)
+        self.nprime_limbs = int_to_limbs(nprime, self.n)
+        self.offset_limbs = int_to_limbs(LAZY_P_BUDGET * modulus, self.n)
+        # CIOS soundness: inputs < 2*BUDGET*p must give outputs < 2p
+        assert (2 * LAZY_P_BUDGET) ** 2 * modulus < (1 << (LIMB_BITS * self.n)), name
+        self._columns = {}
+
+    # --- host-side conversions (I/O boundary only) ------------------------
+    def to_mont(self, v: int) -> np.ndarray:
+        return int_to_limbs(v * self.mont_r % self.modulus, self.n)
+
+    def from_mont(self, limbs) -> int:
+        return limbs_to_int(limbs) * pow(self.mont_r, -1, self.modulus) % self.modulus
+
+    def pack(self, values, device) -> torch.Tensor:
+        """Iterable of ints -> [n, B] int32 Montgomery tensor (canonical)."""
+        m, r = self.modulus, self.mont_r
+        return self._tensor(self._limbs_from_ints([int(v) * r % m for v in values]), device)
+
+    def pack_raw(self, values, device) -> torch.Tensor:
+        """Iterable of ints in [0, p) -> RAW (non-Montgomery) [n, B] limbs."""
+        return self._tensor(self._limbs_from_ints([int(v) for v in values]), device)
+
+    @staticmethod
+    def _tensor(arr: np.ndarray, device) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    def _limbs_from_ints(self, ints) -> np.ndarray:
+        nb = 2 * self.n
+        buf = b"".join(v.to_bytes(nb, "little") for v in ints)
+        return (
+            np.frombuffer(buf, dtype="<u2").reshape(-1, self.n).T.astype(np.int32)
+        )
+
+    def unpack_raw(self, arr) -> list:
+        """RAW canonical [n, B] limbs -> list of ints."""
+        a = _as_numpy(arr).astype(np.uint16).astype("<u2")
+        buf = a.T.tobytes()
+        nb = 2 * self.n
+        return [
+            int.from_bytes(buf[i * nb : (i + 1) * nb], "little")
+            for i in range(a.shape[-1])
+        ]
+
+    def unpack(self, arr) -> list:
+        """[n, ...] -> flat list of ints (standard form, mod p applied).
+        Handles lazy limbs (possibly negative): the value splits into a
+        low-16 plane and an offset-biased high plane, each recombined with
+        one bytes pass, then one host mulmod by R^-1."""
+        flat = _as_numpy(arr).astype(np.int64).reshape(self.n, -1)
+        B = flat.shape[1]
+        nb = 2 * self.n
+        lo = (flat & 0xFFFF).astype("<u2").T.tobytes()
+        hi = ((flat >> 16) + (1 << 15)).astype("<u2").T.tobytes()
+        bias = sum(1 << (15 + 16 * (i + 1)) for i in range(self.n))
+        rinv, m = pow(self.mont_r, -1, self.modulus), self.modulus
+        ifb = int.from_bytes
+        return [
+            (ifb(lo[i * nb : (i + 1) * nb], "little")
+             + (ifb(hi[i * nb : (i + 1) * nb], "little") << 16) - bias)
+            * rinv % m
+            for i in range(B)
+        ]
+
+    # --- device constants ---------------------------------------------------
+    def column(self, limbs: np.ndarray, device, dtype=torch.int32) -> torch.Tensor:
+        """Constant limbs as an [n, 1] tensor, cached per device: a
+        constant is copied to the card once, not once per use."""
+        device = torch.device(device)
+        key = (limbs.tobytes(), device, dtype)
+        col = self._columns.get(key)
+        if col is None:
+            col = torch.as_tensor(limbs.astype(np.int64), dtype=dtype,
+                                  device=device).reshape(self.n, 1)
+            self._columns[key] = col
+        return col
+
+    def zeros(self, batch_shape, device) -> torch.Tensor:
+        return torch.zeros((self.n, *batch_shape), dtype=torch.int32, device=device)
+
+    def ones(self, batch_shape, device) -> torch.Tensor:
+        return self.const(1, batch_shape, device)
+
+    def const(self, v: int, batch_shape, device) -> torch.Tensor:
+        """Montgomery constant broadcast (a view, not a copy) to the batch."""
+        c = self.column(self.to_mont(v % self.modulus), device)
+        return c.reshape(self.n, *([1] * len(batch_shape))).expand(
+            self.n, *batch_shape
+        )
+
+
+FQ = FieldSpec(P, "fq377")
+FR = FieldSpec(R, "fr253")
+FQ761 = FieldSpec(BW6_P, "fq761")
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions of the two kernels (int64: m * p_j and the column
+# sums overflow int32, and torch.uint32 lacks most CPU operations)
+# ---------------------------------------------------------------------------
+
+def _normalize_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """Lazy [n, B] limbs -> canonical int64 limbs of (value + 256p) mod R:
+    one signed ripple, exact for any |limb| < 2^26."""
+    t = x.to(torch.int64) + spec.column(spec.offset_limbs, x.device, torch.int64)
+    out = torch.empty_like(t)
+    carry = torch.zeros_like(t[0])
+    for k in range(spec.n):
+        v = t[k] + carry
+        carry = v >> LIMB_BITS  # arithmetic shift: floor division
+        out[k] = v & LIMB_MASK
+    return out
+
+
+def _carry_out(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
+    """Nonnegative int64 columns of a value < R -> canonical int32 limbs."""
+    out = torch.empty((spec.n, cols.shape[1]), dtype=torch.int32, device=cols.device)
+    carry = torch.zeros_like(cols[0])
+    for k in range(spec.n):
+        v = cols[k] + carry
+        out[k] = (v & LIMB_MASK).to(torch.int32)
+        carry = v >> LIMB_BITS
+    return out
+
+
+def _mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of mont_mul; a, b: [n, B] int32. The same integer
+    as the JAX package's mul_conv, in absolute-column CIOS form: row i adds
+    a_i * b and m_i * p at columns i..i+n-1 and carries column i's high
+    part into column i+1; columns n..2n then hold (A B + m p) / R."""
+    n, B = spec.n, a.shape[1]
+    ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
+    an, bn = ab[:, :B], ab[:, B:]
+    p = spec.column(spec.p_limbs, a.device, torch.int64)
+    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=a.device)
+    for i in range(n):
+        T[i : i + n] += an[i] * bn
+        m = (T[i] * spec.n0inv) & LIMB_MASK
+        T[i : i + n] += m * p
+        T[i + 1] += T[i] >> LIMB_BITS
+    return _carry_out(spec, T[n:])
+
+
+def _redc_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of mont_redc: canonical limbs of REDC(x + 256p)."""
+    n, B = spec.n, x.shape[1]
+    p = spec.column(spec.p_limbs, x.device, torch.int64)
+    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=x.device)
+    T[:n] = _normalize_plain(spec, x)
+    for i in range(n):
+        m = (T[i] * spec.n0inv) & LIMB_MASK
+        T[i : i + n] += m * p
+        T[i + 1] += T[i] >> LIMB_BITS
+    return _carry_out(spec, T[n:])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: route by device, count launches
+# ---------------------------------------------------------------------------
+
+class _KernelWrapper:
+    """A kernel's entry point. `launches` counts the kernel launches (and
+    nothing else: calls on CPU tensors go to the plain version)."""
+
+    name = ""
+
+    def __init__(self):
+        self.launches = 0
+        self._consts = {}
+
+    def _constants(self, spec: FieldSpec) -> "kernels.FieldConstants":
+        c = self._consts.get(spec.name)
+        if c is None:
+            c = self._consts[spec.name] = kernels.FieldConstants(spec)
+        return c
+
+    @staticmethod
+    def _check(spec: FieldSpec, *ts):
+        dev = ts[0].device
+        for t in ts:
+            if t.device != dev:
+                raise ValueError(f"operands on {t.device} and {dev}")
+            if t.dtype != torch.int32 or t.dim() != 2 or t.shape[0] != spec.n:
+                raise ValueError(
+                    f"expected [{spec.n}, B] int32, got {tuple(t.shape)} {t.dtype}"
+                )
+        if any(t.shape != ts[0].shape for t in ts):
+            raise ValueError("operand shapes differ")
+        if dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {dev}")
+        return dev.type == "cuda"
+
+
+class _MontMul(_KernelWrapper):
+    name = "mont_mul"
+
+    def __call__(self, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+        if not self._check(spec, a, b):
+            return _mul_plain(spec, a, b)
+        a, b = a.contiguous(), b.contiguous()
+        out = torch.empty_like(a)
+        kernels.launch_mont_mul(self._constants(spec), a, b, out)
+        self.launches += 1
+        return out
+
+
+class _MontRedc(_KernelWrapper):
+    name = "mont_redc"
+
+    def __call__(self, spec: FieldSpec, x: torch.Tensor):
+        if not self._check(spec, x):
+            return _redc_plain(spec, x)
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        kernels.launch_mont_redc(self._constants(spec), x, out)
+        self.launches += 1
+        return out
+
+
+mont_mul = _MontMul()
+mont_redc = _MontRedc()
+KERNELS = (mont_mul, mont_redc)
+
+
+def reset_launches():
+    for k in KERNELS:
+        k.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Field-op namespaces
+# ---------------------------------------------------------------------------
+
+def make_field_ops(spec: FieldSpec):
+    n = spec.n
+
+    # --- lazy ops: single elementwise int32 instructions ------------------
+    def add(a, b):
+        return a + b
+
+    def sub(a, b):
+        return a - b
+
+    def neg(a):
+        return -a
+
+    def mul_small(a, k: int):
+        # audited ceiling: 12 * (sum of a few canonical limbs) < 2^26,
+        # the lazy-normalize bound (largest user: BW6 G2's b3 = 12)
+        assert 0 <= k <= 12
+        return a * k
+
+    def select(c, a, b):
+        return torch.where(c[None], a, b)
+
+    # --- multiply (erases lazy drift; output canonical < 2p) --------------
+    def _flat_pair(a, b):
+        batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+        a = a.expand(n, *batch).reshape(n, -1)
+        b = b.expand(n, *batch).reshape(n, -1)
+        return a, b, batch
+
+    def mul(a, b):
+        a, b, batch = _flat_pair(a, b)
+        return mont_mul(spec, a, b).reshape(n, *batch)
+
+    def mul_many(pairs):
+        """Many independent products in ONE kernel launch (batch concat)."""
+        if len(pairs) == 1:
+            return [mul(pairs[0][0], pairs[0][1])]
+        batch = torch.broadcast_shapes(
+            *[torch.broadcast_shapes(a.shape[1:], b.shape[1:]) for a, b in pairs]
+        )
+        A = torch.cat([a.expand(n, *batch) for a, _ in pairs], dim=-1)
+        Bm = torch.cat([b.expand(n, *batch) for _, b in pairs], dim=-1)
+        C = mul(A, Bm)
+        w = batch[-1]
+        return [C[..., i * w : (i + 1) * w] for i in range(len(pairs))]
+
+    def sq(a):
+        return mul(a, a)
+
+    # --- Montgomery reduction (REDC): half a multiply ----------------------
+    def redc_many(vals):
+        """Stacked REDC: lazy values -> canonical limbs of REDC(v + 256p),
+        each < 2p, in ONE kernel launch for k values."""
+        batch = torch.broadcast_shapes(*[v.shape[1:] for v in vals])
+        assert len(batch) == 1, "field batch must be 1-D"
+        A = torch.cat([v.expand(n, *batch) for v in vals], dim=-1)
+        out = mont_redc(spec, A)
+        w = batch[-1]
+        return [out[..., i * w : (i + 1) * w] for i in range(len(vals))]
+
+    # --- mod-p semantic predicates ------------------------------------------
+    def canon2p(a):
+        """Lazy value -> canonical limbs with value < 2p (mod p preserved):
+        Montgomery-multiply by R (the Montgomery form of 1)."""
+        return mul(a, spec.ones(a.shape[1:], a.device))
+
+    def is_zero(a):
+        return is_zero_many([a])[0]
+
+    def eq(a, b):
+        return is_zero(a - b)
+
+    def is_zero_many(vals):
+        """Stacked zero-tests (x == 0 mod p iff REDC(x) in {0, p}):
+        ONE half-multiply launch for k values."""
+        outs = redc_many(vals)
+        pl_ = spec.column(spec.p_limbs, outs[0].device)
+        return [((z == 0).all(dim=0)) | ((z == pl_).all(dim=0)) for z in outs]
+
+    def reduce_2p(a):
+        """Canonical-limb value < 2p -> [0, p): one conditional subtract."""
+        z = a.to(torch.int64)
+        p = spec.column(spec.p_limbs, a.device, torch.int64)
+        d = torch.empty_like(z)
+        carry = torch.zeros_like(z[0])
+        for k in range(n):
+            v = z[k] - p[k] + carry
+            carry = v >> LIMB_BITS
+            d[k] = v & LIMB_MASK
+        return torch.where((carry < 0)[None], z, d).to(torch.int32)
+
+    def to_canonical(a):
+        """Full reduction to [0, p): canon2p then one conditional subtract."""
+        return reduce_2p(canon2p(a))
+
+    # --- raw (non-Montgomery) boundary ----------------------------------------
+    _r2_raw = int_to_limbs(spec.mont_r2, n)
+
+    def from_raw(a):
+        """RAW canonical limbs (value < p) -> Montgomery form:
+        mont_mul(v, R^2) = v*R."""
+        r2 = spec.column(_r2_raw, a.device)
+        return mul(a, r2.reshape(n, *([1] * (a.dim() - 1))).expand(a.shape))
+
+    def to_raw(a):
+        """Montgomery (lazy ok) -> RAW canonical limbs in [0, p)."""
+        return reduce_2p(redc_many([a])[0])
+
+    def pow_const(a, e: int):
+        """a^e for a fixed python-int exponent: 4-bit fixed windows (a table
+        a^0..a^15, then 4 squarings and ONE multiply per window), with the
+        window digits static Python ints."""
+        if e == 0:
+            return spec.ones(a.shape[1:], a.device)
+        if e.bit_length() <= 8:
+            result = None
+            base = a
+            while e > 0:
+                if e & 1:
+                    result = base if result is None else mul(result, base)
+                e >>= 1
+                if e:
+                    base = sq(base)
+            return result
+        W = 4
+        nb = e.bit_length()
+        nw = (nb + W - 1) // W
+        digits = [(e >> (W * (nw - 1 - i))) & ((1 << W) - 1) for i in range(nw)]
+        table = [spec.ones(a.shape[1:], a.device), a]
+        for _ in range(2, 1 << W):
+            table.append(mul(table[-1], a))
+        res = table[digits[0]]
+        for d in digits[1:]:
+            for _ in range(W):
+                res = sq(res)
+            res = mul(res, table[d])
+        return res
+
+    def inv(a):
+        """a^(p-2): batched, branch-free. inv(0) = 0."""
+        return pow_const(a, spec.modulus - 2)
+
+    def legendre_is_qr(a):
+        l = pow_const(a, (spec.modulus - 1) // 2)
+        return eq(l, spec.ones(a.shape[1:], a.device))
+
+    class Ops:
+        pass
+
+    ops = Ops()
+    ops.spec = spec
+    ops.n = n
+    ops.add = add
+    ops.sub = sub
+    ops.neg = neg
+    ops.mul = mul
+    ops.mul_many = mul_many
+    ops.sq = sq
+    ops.mul_small = mul_small
+    ops.redc_many = redc_many
+    ops.is_zero = is_zero
+    ops.is_zero_many = is_zero_many
+    ops.eq = eq
+    ops.select = select
+    ops.canon2p = canon2p
+    ops.reduce_2p = reduce_2p
+    ops.to_canonical = to_canonical
+    ops.from_raw = from_raw
+    ops.to_raw = to_raw
+    ops.pow_const = pow_const
+    ops.inv = inv
+    ops.legendre_is_qr = legendre_is_qr
+    ops.zeros = spec.zeros
+    ops.ones = spec.ones
+    ops.const = spec.const
+    return ops
+
+
+fq = make_field_ops(FQ)
+fr = make_field_ops(FR)
+fq761 = make_field_ops(FQ761)
