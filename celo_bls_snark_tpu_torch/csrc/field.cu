@@ -38,36 +38,16 @@
 // version is simple and exact; making it fast (wide multiply-add chains,
 // fewer mask/shift pairs, more lanes per thread) is later work.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "field_common.cuh"
 
 namespace {
 
-constexpr uint32_t kMask = 0xFFFFu;
+using celo::FieldConsts;
+using celo::fill_consts;
+using celo::kMask;
+using celo::load_normalized;
+
 constexpr int kThreads = 128;
-constexpr int kMaxLimbs = 49;
-
-struct FieldConsts {
-    uint32_t p[kMaxLimbs];
-    int32_t offset[kMaxLimbs];
-    uint32_t n0inv;
-};
-
-// lazy int32 limbs of one lane -> canonical limbs of (value + 256p)
-template <int N>
-__device__ __forceinline__ void load_normalized(const int32_t* __restrict__ x,
-                                                int64_t lane, int64_t B,
-                                                const FieldConsts& c,
-                                                uint32_t (&out)[N]) {
-    int32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-        int32_t v = x[k * B + lane] + c.offset[k] + carry;
-        carry = v >> 16;  // arithmetic shift: floor division
-        out[k] = static_cast<uint32_t>(v - (carry << 16));
-    }
-    // value + 256p lies in (0, 512p) < R: the carry out is 0
-}
 
 // one CIOS reduction row: t += m p with m = t[0] n0inv mod 2^16, then
 // t /= 2^16 (t[0] becomes divisible by 2^16; its high half moves to t[1])
@@ -101,8 +81,10 @@ __device__ __forceinline__ void store_carried(int32_t* __restrict__ out,
     }
 }
 
-template <int N>
-__global__ void __launch_bounds__(kThreads)
+// THREADS is the block size the kernel is compiled for: the register
+// budget ptxas works to follows from it (65,536 / THREADS, at most 255)
+template <int N, int THREADS>
+__global__ void __launch_bounds__(THREADS)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t B, FieldConsts c) {
     const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -146,19 +128,8 @@ mont_redc_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
     store_carried<N>(out, lane, B, t);
 }
 
-int fill_consts(int n, const uint32_t* p, const int32_t* offset,
-                uint32_t n0inv, FieldConsts* c) {
-    if (n < 1 || n > kMaxLimbs) return static_cast<int>(cudaErrorInvalidValue);
-    for (int k = 0; k < kMaxLimbs; ++k) {
-        c->p[k] = k < n ? p[k] : 0;
-        c->offset[k] = k < n ? offset[k] : 0;
-    }
-    c->n0inv = n0inv;
-    return 0;
-}
-
-unsigned grid_for(int64_t B) {
-    return static_cast<unsigned>((B + kThreads - 1) / kThreads);
+unsigned grid_for(int64_t B, int threads = kThreads) {
+    return static_cast<unsigned>((B + threads - 1) / threads);
 }
 
 }  // namespace
@@ -177,9 +148,9 @@ extern "C" int celo_mont_mul(int n, const uint32_t* p, const int32_t* offset,
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (n) {
-        case 17: mont_mul_kernel<17><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
-        case 25: mont_mul_kernel<25><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
-        case 49: mont_mul_kernel<49><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
+        case 17: mont_mul_kernel<17, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
+        case 25: mont_mul_kernel<25, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
+        case 49: mont_mul_kernel<49, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
@@ -197,6 +168,34 @@ extern "C" int celo_mont_redc(int n, const uint32_t* p, const int32_t* offset,
         case 17: mont_redc_kernel<17><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
         case 25: mont_redc_kernel<25><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
         case 49: mont_redc_kernel<49><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// mont_mul at n = 25 with the block size chosen by the caller (32, 64, 128,
+// 256 or 512 threads): replaces the block-width sweep kernel make_mul of the
+// JAX package's scripts/prof_field.py. Bound by the integer pipes like
+// celo_mont_mul; each block size is its own instantiation, so the sweep
+// shows what registers per thread and blocks per SM do to the same source.
+extern "C" int celo_mont_mul_shape(int n, const uint32_t* p,
+                                   const int32_t* offset, uint32_t n0inv,
+                                   const int32_t* a, const int32_t* b,
+                                   int32_t* out, int64_t B, int threads,
+                                   void* stream) {
+    FieldConsts c;
+    int err = fill_consts(n, p, offset, n0inv, &c);
+    if (err) return err;
+    if (n != 25) return static_cast<int>(cudaErrorInvalidValue);
+    if (B <= 0) return 0;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned grid = grid_for(B, threads);
+    switch (threads) {
+        case 32: mont_mul_kernel<25, 32><<<grid, 32, 0, s>>>(a, b, out, B, c); break;
+        case 64: mont_mul_kernel<25, 64><<<grid, 64, 0, s>>>(a, b, out, B, c); break;
+        case 128: mont_mul_kernel<25, 128><<<grid, 128, 0, s>>>(a, b, out, B, c); break;
+        case 256: mont_mul_kernel<25, 256><<<grid, 256, 0, s>>>(a, b, out, B, c); break;
+        case 512: mont_mul_kernel<25, 512><<<grid, 512, 0, s>>>(a, b, out, B, c); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());

@@ -136,3 +136,21 @@ def aggregate_g2_device(pubkeys_jac):
 def aggregate_g1_device(sigs_jac):
     """Sum of a projective G1 batch -> batch-1 point (Signature::aggregate)."""
     return dc.g1.msum(sigs_jac)
+
+
+def msm_g1_device(bits, points_jac):
+    """Batched scalar-mul + tree-sum MSM (double-and-add form).
+
+    bits: [nbits, B]; points_jac: G1 projective batch [B]. Returns batch-1
+    projective point = sum_i scalar_i * P_i.
+    The Pippenger bucketed version lives in ops/msm.py; this dense form is
+    the small-batch path (PublicKey::batch / Signature::batch semantics,
+    public.rs:47-65).
+    """
+    prods = dc.g1.scalar_mul_bits(bits, points_jac)
+    return dc.g1.msum(prods)
+
+
+def msm_g2_device(bits, points_jac):
+    prods = dc.g2.scalar_mul_bits(bits, points_jac)
+    return dc.g2.msum(prods)

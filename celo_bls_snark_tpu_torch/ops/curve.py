@@ -1,6 +1,6 @@
-"""Batched short-Weierstrass group law (G1 over Fq, G2 over Fq2), the
-PyTorch counterpart of the BLS12-377 part of the JAX package's
-ops/curve.py.
+"""Batched short-Weierstrass group law (BLS12-377 G1 over Fq and G2 over
+Fq2, BW6-761 G1 and G2 over Fq761), the PyTorch counterpart of the JAX
+package's ops/curve.py.
 
 Points are homogeneous projective (X, Y, Z) tuples of limb tensors;
 infinity is (0, 1, 0) (Z == 0). The group law is the COMPLETE a=0 addition
@@ -19,13 +19,14 @@ wide kernel launches (F.mul_many layers): a complete add is 2 launches of
 Host oracle: hostmath/curves.py.
 """
 
+import numpy as np
 import torch
 
 from ..hostmath import fp2
 from ..hostmath.params import G2_B_C1 as _G2_B_C1
 from ..hostmath.params import P
 from ..utils.tree import tree_leaves, tree_map
-from .field import FQ, fq
+from .field import FQ, fq, fq761, ops_for
 from . import tower as tw
 
 
@@ -69,6 +70,29 @@ class _FqWrap:
     @staticmethod
     def smul(k, a):
         return fq.mul_small(a, k)
+
+
+class _Fq761Wrap(_FqWrap):
+    """BW6-761 base-field adapter (both BW6 G1 and G2 live over Fq761;
+    the groups differ only in the curve constant b, i.e. in b3_mul)."""
+
+    add = staticmethod(fq761.add)
+    sub = staticmethod(fq761.sub)
+    mul = staticmethod(fq761.mul)
+    mul_many = staticmethod(fq761.mul_many)
+    sq = staticmethod(fq761.sq)
+    neg = staticmethod(fq761.neg)
+    inv = staticmethod(fq761.inv)
+    is_zero = staticmethod(fq761.is_zero)
+    is_zero_many = staticmethod(fq761.is_zero_many)
+    eq = staticmethod(fq761.eq)
+    select = staticmethod(fq761.select)
+    zeros = staticmethod(fq761.zeros)
+    ones = staticmethod(fq761.ones)
+
+    @staticmethod
+    def smul(k, a):
+        return fq761.mul_small(a, k)
 
 
 def make_curve_ops(F, b3_mul):
@@ -298,6 +322,11 @@ def _b3_mul_g2(t):
 
 g1 = make_curve_ops(_FqWrap, lambda t: _FqWrap.smul(3, t))
 g2 = make_curve_ops(_F2Wrap, _b3_mul_g2)
+# BW6-761 G1: y^2 = x^3 - 1 -> 3b = -3; G2: y^2 = x^3 + 4 -> 3b = 12
+bw6_g1 = make_curve_ops(
+    _Fq761Wrap, lambda t: _Fq761Wrap.neg(_Fq761Wrap.smul(3, t))
+)
+bw6_g2 = make_curve_ops(_Fq761Wrap, lambda t: _Fq761Wrap.smul(12, t))
 
 
 # --- host <-> device point packing ----------------------------------------
@@ -318,9 +347,17 @@ def pack_jac(spec, points, device):
     return (spec.pack(xs, device), spec.pack(ys, device), spec.pack(zs, device))
 
 
+def pack_affine(spec, points, device):
+    """List of affine host points (None = infinity -> (0, 0)) -> (x, y)."""
+    xs = [0 if p is None else p[0] for p in points]
+    ys = [0 if p is None else p[1] for p in points]
+    return (spec.pack(xs, device), spec.pack(ys, device))
+
+
 def unpack_jac(spec, dev_pt):
-    """Projective batch -> list of affine host points (None = infinity),
-    with one host modular inverse (Montgomery batch inversion)."""
+    """Projective batch over a prime field (FQ for BLS12-377 G1, FQ761 for
+    BW6 G1/G2) -> list of affine host points (None = infinity), with one
+    host modular inverse (Montgomery batch inversion)."""
     X, Y, Z = dev_pt
     xs = spec.unpack(X)
     ys = spec.unpack(Y)
@@ -404,3 +441,157 @@ def g2_unpack(dev_pt):
                 fp2.mul((y0[i], y1[i]), zi),
             )
     return out
+
+
+# --- batch projective->affine on the device + packed point carrier ---------
+
+def _flatten(tree):
+    """(leaves, rebuild): rebuild(list of leaves) -> the tree's structure."""
+    leaves = tree_leaves(tree)
+
+    def rebuild(vals):
+        it = iter(vals)
+        return tree_map(lambda _: next(it), tree)
+
+    return leaves, rebuild
+
+
+class PointVec:
+    """A batch of affine points held as RAW canonical uint16 limb matrices
+    (numpy [n_limbs, B] per affine field component; infinity = all-zero
+    coordinates). The zero-marshaling point representation between the
+    setup's device fixed-base kernels, ProvingKey storage, and the
+    prover's MSM base packing.
+
+    Acts as a sequence of host affine points (tuples of python ints,
+    None = infinity) for serialization/tests; the bulk conversion is lazy
+    and cached."""
+
+    def __init__(self, leaves, spec, template):
+        self.leaves = [np.asarray(l) for l in leaves]
+        self.spec = spec
+        self.template = template  # host affine structure, e.g. (0, 0)
+        self._host = None
+        self._rebuild = _flatten(template)[1]
+
+    def __len__(self):
+        return int(self.leaves[0].shape[-1])
+
+    def to_host_list(self):
+        if self._host is None:
+            cols = [self.spec.unpack_raw(l) for l in self.leaves]
+            pts = []
+            for vals in zip(*cols):
+                if all(v == 0 for v in vals):
+                    pts.append(None)
+                else:
+                    pts.append(self._rebuild(list(vals)))
+            self._host = pts
+        return self._host
+
+    def __iter__(self):
+        return iter(self.to_host_list())
+
+    def __getitem__(self, i):
+        return self.to_host_list()[i]
+
+    def __eq__(self, other):
+        """Sequence equality against any iterable of host affine points
+        (ProvingKey dataclass equality compares query vectors)."""
+        if isinstance(other, PointVec):
+            other = other.to_host_list()
+        if isinstance(other, (list, tuple)):
+            return self.to_host_list() == list(other)
+        return NotImplemented
+
+    def device_montgomery(self, device, pad_to=None):
+        """Affine tree on `device` (Montgomery int32 limbs) shaped like the
+        group's pack_fn output: one copy of uint16 limbs and one from_raw
+        multiply on the device."""
+        fops = ops_for(self.spec)
+        B0 = self.leaves[0].shape[-1]
+        B = pad_to or B0
+        arrs = [
+            np.pad(l, ((0, 0), (0, B - B0))) if B > B0 else l
+            for l in self.leaves
+        ]
+        cat = np.concatenate(arrs, axis=-1).astype(np.int32)
+        # reduce_2p: from_raw output is < 2p, so a zero (infinity)
+        # coordinate can come back as exactly p, whose nonzero limbs
+        # would defeat madd's all-zero-limb infinity test
+        dev = fops.reduce_2p(fops.from_raw(torch.from_numpy(cat).to(device)))
+        parts = [dev[..., i * B : (i + 1) * B] for i in range(len(self.leaves))]
+        return self._rebuild(parts)
+
+
+_AFFINE_RAW = {}
+
+
+def make_affine_raw(curve, fops, host_inv, template):
+    """Device projective batch -> PointVec, with ONE host modular inverse.
+
+    Montgomery batch inversion on the device: Hillis-Steele inclusive
+    prefix/suffix products of the (infinity-masked) Z column, every round
+    one full-width field multiply, then inv(z_i) = P_{i-1} * S_{i+1} * T^-1
+    where only T^-1 crosses to the host (a handful of bytes).
+
+    host_inv: tuple of leaf ints -> tuple of leaf ints (field inverse of
+    the total product T, computed on host)."""
+    F = curve.F
+    spec = fops.spec
+
+    def scan_products(zden, B, idx, reverse):
+        P = zden
+        s = 1
+        while s < B:
+            if reverse:
+                rolled = tree_map(lambda a: torch.roll(a, -s, dims=-1), P)
+                edge = idx >= B - s
+            else:
+                rolled = tree_map(lambda a: torch.roll(a, s, dims=-1), P)
+                edge = idx < s
+            rolled = F.select(edge, F.ones((B,), idx.device), rolled)
+            P = F.mul(P, rolled)
+            s <<= 1
+        return P
+
+    def run(dev_pt):
+        X, Y, Z = dev_pt
+        z0 = tree_leaves(Z)[0]
+        B, device = z0.shape[-1], z0.device
+        idx = torch.arange(B, device=device)
+        ones = F.ones((B,), device)
+        m = F.is_zero(Z)
+        zden = F.select(m, ones, Z)
+        Pf = scan_products(zden, B, idx, reverse=False)
+        Sf = scan_products(zden, B, idx, reverse=True)
+        total = tree_map(lambda a: a[..., B - 1 : B], Pf)
+        t_ints = tuple(
+            spec.unpack_raw(fops.to_raw(l))[0] for l in tree_leaves(total)
+        )
+        packed = [spec.pack([v], device) for v in host_inv(t_ints)]
+        # match the field-element structure of Z: bare tensor for Fp,
+        # component tuple for extension fields
+        invT = packed[0] if len(packed) == 1 else tuple(packed)
+        left = tree_map(lambda a: torch.roll(a, 1, dims=-1), Pf)
+        left = F.select(idx < 1, ones, left)          # P_{i-1}
+        right = tree_map(lambda a: torch.roll(a, -1, dims=-1), Sf)
+        right = F.select(idx >= B - 1, ones, right)   # S_{i+1}
+        invT_b = tree_map(lambda a: a.expand(a.shape[0], B), invT)
+        zi = F.mul(F.mul(left, right), invT_b)
+        xa = F.mul(X, zi)
+        ya = F.mul(Y, zi)
+        leaves = []
+        for l in tree_leaves((xa, ya)):
+            r = fops.to_raw(l)
+            r = torch.where(m[None], torch.zeros_like(r), r)
+            leaves.append(r.cpu().numpy().astype(np.uint16))
+        return PointVec(leaves, spec, template)
+
+    return run
+
+
+def affine_raw_fn(curve, fops, host_inv, template, tag):
+    if tag not in _AFFINE_RAW:
+        _AFFINE_RAW[tag] = make_affine_raw(curve, fops, host_inv, template)
+    return _AFFINE_RAW[tag]

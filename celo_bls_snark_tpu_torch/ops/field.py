@@ -15,18 +15,26 @@ limbs on the leading axis, batch on the last.
   inputs below 2 * LAZY_P_BUDGET * p still give outputs < 2p. Multiply
   outputs are canonical limbs (< 2^16) of a value < 2p.
 
-Two kernels carry every multiply and zero test, each behind a wrapper that
+The kernels carry every multiply and zero test, each behind a wrapper that
 routes by the tensor's device: a CPU tensor goes to the plain PyTorch
-version beside the kernel, a CUDA tensor to the kernel (csrc/field.cu),
-anything else raises. There is no fallback from the card to the plain
-version.
+version beside the kernel, a CUDA tensor to the kernel (csrc/), anything
+else raises. There is no fallback from the card to the plain version.
 
-  mont_mul   lazy a, b -> canonical limbs of (A B + m p) / R, where
-             A = a + 256p, B = b + 256p and m = -A B p^-1 mod R
-  mont_redc  lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
+  mont_mul        lazy a, b -> canonical limbs of (A B + m p) / R, where
+                  A = a + 256p, B = b + 256p and m = -A B p^-1 mod R
+  mont_mul_tc     the same function in separated form, with the two
+                  constant-operand products of the reduction on the tensor
+                  cores; `mul` uses it under mul_kernel("tc") or with
+                  CELO_MUL_MXU=1 in the environment
+  mont_mul_shape  mont_mul at n = 25 with the threads per block chosen by
+                  the caller (scripts/prof_field.py's sweep)
+  mont_redc       lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
 
 Host oracle: hostmath/fp.py.
 """
+
+import os
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -216,6 +224,94 @@ def _mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return _carry_out(spec, T[n:])
 
 
+def tc_weights(spec: FieldSpec, rows_to: int = 1, depth_to: int = 1):
+    """The weight matrices of the separated Montgomery form over 8-bit
+    pieces, as numpy uint8: W1[k, i] = n'8[k - i] for k < 2n (the low
+    product only: mod R) and W2[k, i] = p8[k - i] for k < 4n (the full
+    product), 0 <= k - i < 2n, zero elsewhere. Rows are padded with zeros
+    to a multiple of `rows_to`, columns to a multiple of `depth_to`."""
+    n2 = 2 * spec.n
+
+    def pieces8(limbs):
+        out = []
+        for l in limbs:
+            out += [int(l) & 0xFF, int(l) >> 8]
+        return out
+
+    def toeplitz(w8, rows):
+        pad_r = -(-rows // rows_to) * rows_to
+        pad_c = -(-n2 // depth_to) * depth_to
+        W = np.zeros((pad_r, pad_c), dtype=np.uint8)
+        for k in range(rows):
+            for i in range(n2):
+                if 0 <= k - i < n2:
+                    W[k, i] = w8[k - i]
+        return W
+
+    return (toeplitz(pieces8(spec.nprime_limbs), n2),
+            toeplitz(pieces8(spec.p_limbs), 2 * n2))
+
+
+def _pieces(limbs16: torch.Tensor) -> torch.Tensor:
+    """[n, B] canonical 16-bit limbs -> [2n, B] 8-bit pieces, low first."""
+    n, B = limbs16.shape
+    return torch.stack([limbs16 & 0xFF, limbs16 >> 8], dim=1).reshape(2 * n, B)
+
+
+def _mul_tc_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of mont_mul_tc, in the kernel's phases: column
+    sums of A B with the low half normalized; m = (T mod R) N' mod R and
+    m p as matrix products over 8-bit pieces; one ripple. The products run
+    in float64, which is exact here (every sum is below 2^23) and is the
+    one type torch.matmul takes on both the CPU and the card for this."""
+    n, B = spec.n, a.shape[1]
+    dev = a.device
+    key = ("tc_plain", dev)
+    Ws = spec._columns.get(key)
+    if Ws is None:
+        Ws = spec._columns[key] = tuple(
+            torch.from_numpy(W.astype(np.float64)).to(dev) for W in tc_weights(spec)
+        )
+    W1, W2 = Ws
+
+    def matmul(W, pieces):
+        return torch.matmul(W, pieces.to(torch.float64)).to(torch.int64)
+
+    ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
+    an, bn = ab[:, :B], ab[:, B:]
+    # phase A: 16-bit-radix column sums of A B, 2n columns
+    T = torch.zeros((2 * n, B), dtype=torch.int64, device=dev)
+    for i in range(n):
+        prod = an[i] * bn
+        T[i : i + n] += prod & LIMB_MASK
+        T[i + 1 : i + n + 1] += prod >> LIMB_BITS
+    carry = torch.zeros_like(T[0])
+    for k in range(n):  # the low half, normalized: T mod R
+        v = T[k] + carry
+        T[k] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    T[n] += carry  # folded in once; the ripple below sees normalized lows
+    # phase B: m = (T mod R) N' mod R; the carry beyond n limbs is dropped
+    m8 = matmul(W1, _pieces(T[:n]))
+    m16 = torch.empty((n, B), dtype=torch.int64, device=dev)
+    carry = torch.zeros_like(T[0])
+    for j in range(n):
+        v = m8[2 * j] + (m8[2 * j + 1] << 8) + carry
+        m16[j] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    # phase C: m p, all 4n radix-2^8 columns
+    mp8 = matmul(W2, _pieces(m16))
+    # final: (T + m p) / R; columns n..2n-1 are the result
+    out = torch.empty((n, B), dtype=torch.int32, device=dev)
+    carry = torch.zeros_like(T[0])
+    for k in range(2 * n):
+        v = T[k] + mp8[2 * k] + (mp8[2 * k + 1] << 8) + carry
+        carry = v >> LIMB_BITS
+        if k >= n:
+            out[k - n] = (v & LIMB_MASK).to(torch.int32)
+    return out
+
+
 def _redc_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
     """The plain version of mont_redc: canonical limbs of REDC(x + 256p)."""
     n, B = spec.n, x.shape[1]
@@ -292,9 +388,87 @@ class _MontRedc(_KernelWrapper):
         return out
 
 
+class _MontMulTc(_KernelWrapper):
+    name = "mont_mul_tc"
+
+    def __init__(self):
+        super().__init__()
+        self._weights = {}
+
+    def weights(self, spec: FieldSpec, device):
+        """W1, W2 as u8 tensors on the card, padded as the kernel reads
+        them (rows to 16, depth to 32), built once per field and card."""
+        key = (spec.name, device)
+        w = self._weights.get(key)
+        if w is None:
+            w = self._weights[key] = tuple(
+                torch.from_numpy(W).to(device).contiguous()
+                for W in tc_weights(spec, rows_to=16, depth_to=32)
+            )
+        return w
+
+    def __call__(self, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
+        if not self._check(spec, a, b):
+            return _mul_tc_plain(spec, a, b)
+        a, b = a.contiguous(), b.contiguous()
+        out = torch.empty_like(a)
+        w1, w2 = self.weights(spec, a.device)
+        kernels.launch_mont_mul_tc(self._constants(spec), a, b, out, w1, w2)
+        self.launches += 1
+        return out
+
+
+class _MontMulShape(_KernelWrapper):
+    name = "mont_mul_shape"
+
+    def __call__(self, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                 threads: int):
+        if spec.n != 25 or threads not in kernels.SHAPE_THREADS:
+            raise ValueError(
+                f"mont_mul_shape takes n = 25 and {kernels.SHAPE_THREADS} "
+                f"threads a block, got n = {spec.n}, {threads}"
+            )
+        if not self._check(spec, a, b):
+            return _mul_plain(spec, a, b)
+        a, b = a.contiguous(), b.contiguous()
+        out = torch.empty_like(a)
+        kernels.launch_mont_mul_shape(self._constants(spec), a, b, out, threads)
+        self.launches += 1
+        return out
+
+
 mont_mul = _MontMul()
 mont_redc = _MontRedc()
-KERNELS = (mont_mul, mont_redc)
+mont_mul_tc = _MontMulTc()
+mont_mul_shape = _MontMulShape()
+KERNELS = (mont_mul, mont_redc, mont_mul_tc, mont_mul_shape)
+
+# which kernel `mul` uses: "cios" (mont_mul) or "tc" (mont_mul_tc). None
+# until first use, when CELO_MUL_MXU=1 in the environment selects "tc", as
+# it selects the tensor-unit multiply in the JAX package
+_MUL_KERNELS = {"cios": mont_mul, "tc": mont_mul_tc}
+_mul_choice = None
+
+
+def selected_mul():
+    global _mul_choice
+    if _mul_choice is None:
+        _mul_choice = "tc" if os.environ.get("CELO_MUL_MXU", "0") == "1" else "cios"
+    return _MUL_KERNELS[_mul_choice]
+
+
+@contextmanager
+def mul_kernel(name: str):
+    """Within the block every field multiply goes through the named
+    kernel: "cios" (mont_mul) or "tc" (mont_mul_tc)."""
+    global _mul_choice
+    if name not in _MUL_KERNELS:
+        raise ValueError(f"mul_kernel takes 'cios' or 'tc', got {name!r}")
+    prev, _mul_choice = _mul_choice, name
+    try:
+        yield
+    finally:
+        _mul_choice = prev
 
 
 def reset_launches():
@@ -337,7 +511,7 @@ def make_field_ops(spec: FieldSpec):
 
     def mul(a, b):
         a, b, batch = _flat_pair(a, b)
-        return mont_mul(spec, a, b).reshape(n, *batch)
+        return selected_mul()(spec, a, b).reshape(n, *batch)
 
     def mul_many(pairs):
         """Many independent products in ONE kernel launch (batch concat)."""
@@ -487,3 +661,9 @@ def make_field_ops(spec: FieldSpec):
 fq = make_field_ops(FQ)
 fr = make_field_ops(FR)
 fq761 = make_field_ops(FQ761)
+_OPS_BY_SPEC = {FQ.name: fq, FR.name: fr, FQ761.name: fq761}
+
+
+def ops_for(spec: FieldSpec):
+    """Field-op namespace for one of the module's FieldSpec singletons."""
+    return _OPS_BY_SPEC[spec.name]

@@ -1,16 +1,18 @@
-"""Build, load and launch the CUDA kernels of csrc/field.cu.
+"""Build, load and launch the CUDA kernels of csrc/.
 
-The source is compiled at first use with nvcc for sm_90a into a shared
-library with a plain C interface, under build/kernels/ at the root of the
-checkout (listed in .gitignore), and loaded with ctypes. The library's
-file name carries a hash of the source, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import time:
-the CPU tests import this module on machines without nvcc or a card.
+Every .cu under csrc/ is compiled at first use with nvcc for sm_90a (one
+nvcc per source, all started together) and linked into one shared library
+with a plain C interface, under build/kernels/ at the root of the checkout
+(listed in .gitignore), and loaded with ctypes. The library's file name
+carries a hash of all sources, so an edited source is rebuilt and a stale
+library is never loaded. Nothing here runs at import time: the CPU tests
+import this module on machines without nvcc or a card.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -18,12 +20,13 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "field.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+SHAPE_THREADS = (32, 64, 128, 256, 512)  # block sizes of celo_mont_mul_shape
 
 _lib = None
 
@@ -39,34 +42,94 @@ def _nvcc() -> str:
     return str(path)
 
 
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"libcelo_field_{digest}.so"
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):  # the .cuh headers too
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"libcelo_field_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:
-    """Compile csrc/field.cu unless the library for this source exists.
+    """Compile csrc/*.cu unless the library for these sources exists.
 
     Returns {"path", "seconds", "built", "ptxas"}: `ptxas` is the
-    compiler's per-kernel register/spill report (empty when not built)."""
+    compiler's per-kernel register/spill report, kept beside the library."""
     out = library_path()
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
-        return {"path": str(out), "seconds": 0.0, "built": False, "ptxas": ""}
+        return {"path": str(out), "seconds": 0.0, "built": False,
+                "ptxas": report.read_text() if report.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(sources(), objs)
+    ]
+    logs = [proc.communicate()[1] for proc in procs]
+    for src, proc, log in zip(sources(), procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) on {src.name}:\n{log}"
+            )
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
         capture_output=True, text=True,
     )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) on {SOURCE.name}:\n{proc.stderr}"
-        )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    report.write_text("".join(logs))
     os.replace(tmp, out)
-    return {"path": str(out), "seconds": seconds, "built": True,
-            "ptxas": proc.stderr}
+    return {"path": str(out), "seconds": time.perf_counter() - t0,
+            "built": True, "ptxas": "".join(logs)}
+
+
+def sass_count(mnemonic: str):
+    """How many SASS instructions of the built library start with
+    `mnemonic` (cuobjdump -sass), or None where the toolkit has no
+    cuobjdump."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    proc = subprocess.run([str(tool), "-sass", build()["path"]],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed:\n{proc.stderr}")
+    return len(re.findall(rf"\b{mnemonic}[.\w]*\s", proc.stdout))
+
+
+def ptxas_report(text: str) -> dict:
+    """`ptxas -v` output -> {kernel: {"registers", "spill_stores",
+    "spill_loads", "smem"}}, the kernel named as `mont_mul_kernel<25,128>`
+    (template arguments read off the mangled name)."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d+(mont_\w+?_kernel)I((?:Li\d+E)+)E", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif name and "Used" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def library() -> ctypes.CDLL:
@@ -77,16 +140,18 @@ def library() -> ctypes.CDLL:
         ptr = ctypes.c_void_p
         u32p = ctypes.POINTER(ctypes.c_uint32)
         i32p = ctypes.POINTER(ctypes.c_int32)
-        lib.celo_mont_mul.argtypes = [
-            ctypes.c_int, u32p, i32p, ctypes.c_uint32,
-            ptr, ptr, ptr, ctypes.c_int64, ptr,
+        consts = [ctypes.c_int, u32p, i32p, ctypes.c_uint32]
+        lib.celo_mont_mul.argtypes = [*consts, ptr, ptr, ptr, ctypes.c_int64, ptr]
+        lib.celo_mont_mul_shape.argtypes = [
+            *consts, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr,
         ]
-        lib.celo_mont_mul.restype = ctypes.c_int
-        lib.celo_mont_redc.argtypes = [
-            ctypes.c_int, u32p, i32p, ctypes.c_uint32,
-            ptr, ptr, ctypes.c_int64, ptr,
+        lib.celo_mont_mul_tc.argtypes = [
+            *consts, ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr,
         ]
-        lib.celo_mont_redc.restype = ctypes.c_int
+        lib.celo_mont_redc.argtypes = [*consts, ptr, ptr, ctypes.c_int64, ptr]
+        for fn in (lib.celo_mont_mul, lib.celo_mont_mul_shape,
+                   lib.celo_mont_mul_tc, lib.celo_mont_redc):
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -102,10 +167,18 @@ class FieldConstants:
         )
         self.n0inv = ctypes.c_uint32(int(spec.n0inv))
 
+    @property
+    def args(self):
+        return self.n, self.p, self.offset, self.n0inv
+
 
 def _check(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -115,19 +188,34 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 def launch_mont_mul(consts: FieldConstants, a, b, out):
     """out = mont_mul(a, b) on the card; all [n, B] int32 contiguous."""
     err = library().celo_mont_mul(
-        consts.n, consts.p, consts.offset, consts.n0inv,
-        ctypes.c_void_p(a.data_ptr()), ctypes.c_void_p(b.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), ctypes.c_int64(a.shape[1]),
+        *consts.args, _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(a.shape[1]),
         _stream(a),
     )
     _check(err, "mont_mul")
 
 
+def launch_mont_mul_shape(consts: FieldConstants, a, b, out, threads: int):
+    """mont_mul at n = 25 with `threads` threads a block (SHAPE_THREADS)."""
+    err = library().celo_mont_mul_shape(
+        *consts.args, _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(a.shape[1]),
+        ctypes.c_int(threads), _stream(a),
+    )
+    _check(err, f"mont_mul_shape[{threads}]")
+
+
+def launch_mont_mul_tc(consts: FieldConstants, a, b, out, w1, w2):
+    """out = mont_mul_tc(a, b) on the card; w1, w2: the field's padded u8
+    weight matrices on the same card."""
+    err = library().celo_mont_mul_tc(
+        *consts.args, _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(a.shape[1]),
+        _ptr(w1), _ptr(w2), _stream(a),
+    )
+    _check(err, "mont_mul_tc")
+
+
 def launch_mont_redc(consts: FieldConstants, x, out):
     """out = mont_redc(x) on the card; both [n, B] int32 contiguous."""
     err = library().celo_mont_redc(
-        consts.n, consts.p, consts.offset, consts.n0inv,
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_int64(x.shape[1]), _stream(x),
+        *consts.args, _ptr(x), _ptr(out), ctypes.c_int64(x.shape[1]), _stream(x),
     )
     _check(err, "mont_redc")

@@ -2,36 +2,49 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits non-zero):
+Phases (each prints one line or more; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
-     versions, and the build of csrc/field.cu with nvcc for sm_90a;
-  2. kernels: mont_mul (n = 17, 25, 49) and mont_redc (n = 17, 25, 49)
-     against their plain PyTorch versions on the card, exactly, on random
-     lazy inputs in (-200p, 200p) with signed limbs, at B in {1, 127, 128,
-     4099, 2^20}; then, again exactly against the plain version, each
-     kernel's time, bound and plain-version time at the widths the main
-     path launches (2, 12, 108, 12288 and 2^20 lanes at n = 25), printed
-     as one `kernels` line
-     (`ms` is the card's time per launch, from a replayed CUDA graph of the
-     launches; `eager_ms` the time per call issued from Python);
+     versions, and the build of csrc/*.cu with nvcc for sm_90a (registers
+     and spills per kernel from ptxas);
+  2. kernels, exactly against their plain PyTorch versions on the card, on
+     random lazy inputs in (-200p, 200p) with signed limbs, at n = 17, 25,
+     49 and B in {1, 127, 128, 4099, 2^20}: mont_mul, mont_redc, and
+     mont_mul_tc (also exactly against mont_mul); mont_mul_shape at each
+     block size. Then, again exactly against the plain version, each
+     kernel's time, bound and plain-version time at the widths the paths
+     launch, printed at the end as one `kernels` line (`ms` is the card's
+     time per launch, from a replayed CUDA graph of the launches;
+     `eager_ms` the time per call issued from Python);
   3. entry(): the 8-message, 4-validator verification is True on the
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
-  4. the main path at the benchmark's defaults (524,288 messages, 100
-     validators, one group, the benchmark's seed): with the launch counts
-     set to 0 just before and read just after, the warm-up verification is
-     True; a stage-by-stage run of the same pipeline gives each stage's
-     time and launches, and its affine P legs equal the host's; a tampered
-     batch is False; the benchmark's 5 timed verifications give the metric
-     line; one profiled verification gives
-     the card's busy time;
-  5. the last line: {"ok": true, "device": {...}}.
+  4. the verification path at the benchmark's defaults (524,288 messages,
+     100 validators, one group, the benchmark's seed): with the launch
+     counts set to 0 just before and read just after, the warm-up
+     verification is True; a stage-by-stage run of the same pipeline gives
+     each stage's time and launches, and its affine P legs equal the
+     host's; a tampered batch is False; 2 timed verifications (the
+     benchmark itself takes 5) give the metric line; one profiled
+     verification gives the card's busy time;
+  5. the launch-shape sweep of scripts/prof_field.py (mont_mul_shape);
+  6. the Groth16 prover's device path at the epoch circuit's width,
+     through snark/accel.py's DeviceAccel("bw6_761") by the stage functions
+     of scripts/bench_msm_ntt.py: fixed-base batch of 2^20 scalars, MSM of
+     2^20 BW6-761 points against one host scalar multiplication, the
+     h-polynomial at d = 2^20 against host evaluations at random points and
+     at d = 2^12 against the host fft pipeline, an ntt_fr round trip at
+     2^20; per stage the seconds, launches and peak memory; one profiled
+     MSM for the card's busy share;
+  7. the same MSM and h-polynomial under mul_kernel("tc"): the same point
+     and the same limbs, every multiply through mont_mul_tc;
+  8. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of the JAX package, and exits non-zero without
 printing a result when no card is available.
 """
 
 import json
+import random
 import subprocess
 import sys
 import time
@@ -58,6 +71,13 @@ from celo_bls_snark_tpu_torch.hostmath import curves as hc  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import curve as dc  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import field as F  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import kernels  # noqa: E402
+from celo_bls_snark_tpu_torch.ops import ntt as dntt  # noqa: E402
+from celo_bls_snark_tpu_torch.scripts import bench_msm_ntt as prover  # noqa: E402
+from celo_bls_snark_tpu_torch.scripts import prof_field  # noqa: E402
+from celo_bls_snark_tpu_torch.snark.accel import DeviceAccel  # noqa: E402
+from celo_bls_snark_tpu_torch.snark.api import BW6_761_ENGINE  # noqa: E402
+from celo_bls_snark_tpu_torch.utils import profiling  # noqa: E402
+from celo_bls_snark_tpu_torch.utils.profiling import time_ms  # noqa: E402
 from celo_bls_snark_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 DEV = torch.device("cuda:0")
@@ -71,32 +91,62 @@ WIDTHS = [1, 127, 128, 4099, 1 << 20]
 # exceed, and the bound it gives is a lower bound on their time
 HBM_BYTES_PER_S = 3.35e12
 LANE_OPS_PER_S = 67e12 / 2
+TENSOR_INT8_OPS_PER_S = 1979e12  # published dense 8-bit integer rate
+SRC = "celo_bls_snark_tpu_torch/csrc/"
 KERNEL_INFO = {
-    "mont_mul": {
-        "source": "celo_bls_snark_tpu_torch/csrc/field.cu",
-        "replaces": "celo_bls_snark_tpu/ops/field.py:252",
-    },
-    "mont_redc": {
-        "source": "celo_bls_snark_tpu_torch/csrc/field.cu",
-        "replaces": "celo_bls_snark_tpu/ops/field.py:479",
-    },
+    "mont_mul": {"source": SRC + "field.cu",
+                 "replaces": "celo_bls_snark_tpu/ops/field.py:252"},
+    "mont_redc": {"source": SRC + "field.cu",
+                  "replaces": "celo_bls_snark_tpu/ops/field.py:479"},
+    "mont_mul_tc": {"source": SRC + "field_tc.cu",
+                    "replaces": "celo_bls_snark_tpu/ops/field.py:323"},
+    "mont_mul_shape": {"source": SRC + "field.cu",
+                       "replaces": "scripts/prof_field.py:28"},
 }
 NO_LIBRARY = ("no PyTorch call computes a multi-precision Montgomery "
               "product or reduction")
+PLAIN = {"mont_mul": F._mul_plain, "mont_redc": F._redc_plain,
+         "mont_mul_tc": F._mul_tc_plain, "mont_mul_shape": F._mul_plain}
+# (n, B) timed per kernel: the widths the paths launch. Verification: the
+# fold's complete adds (6 x 2048 lanes), to_affine's inversion and the
+# Miller loop's infinity tests (2), the pairing's Fq12 products at batch 2
+# (54 x 2), f12_is_one (12 x 1). Prover: the NTT stages (n = 25 and 17 at
+# 2^19), pointwise products and to_raw (2^20), the Pippenger madd's two
+# stacked layers (5 and 6 x 2^15 lanes at n = 49), the batch inversion's
+# products and zero test (n = 49 at 2^20)
+L_MSM = 1 << 15
+TIMED = {
+    "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 19), (25, 1 << 20),
+                 (17, 1 << 19), (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
+    "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (49, 1 << 20)],
+    "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19),
+                    (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
+}
+MAIN_WIDTH = {"mont_mul": (25, 12288), "mont_redc": (25, 2),
+              "mont_mul_tc": (49, 6 * L_MSM)}
+SHAPE_B = 1 << 16  # the launch-shape sweep's width, n = 25
 
 
 def bound(name, n, B):
     """(bound_ms, bound_by) for one launch over B lanes: the larger of
-    bytes / HBM rate (inputs read once, output written once) and the
-    32-bit integer operations of a 16-bit-radix CIOS / the FP32
-    lane-instruction rate (a ceiling on the integer rate). Per lane, mont_mul needs 2 n^2 multiplies (a_i b_j and m_i p_j)
-    and about 4 n^2 adds, shifts and masks to accumulate their halves
-    (6 n^2); mont_redc needs half of that (3 n^2)."""
-    if name == "mont_mul":
-        nbytes, ops = 12 * n * B, 6 * n * n * B
+    bytes / HBM rate (inputs read once, output written once) and
+    operations / peak rate. Per lane a 16-bit-radix CIOS needs 2 n^2
+    multiplies (a_i b_j and m_i p_j) and about 4 n^2 adds, shifts and masks
+    to accumulate their halves: 6 n^2 32-bit integer operations for
+    mont_mul, half of that for mont_redc, at the FP32 lane-instruction rate
+    (a ceiling on the integer rate). mont_mul_tc keeps one of the two
+    products on the CUDA cores (3 n^2) and does 2 (2n 2n + 4n 2n) = 24 n^2
+    8-bit operations on the tensor cores; its operations time is the larger
+    of the two."""
+    if name == "mont_redc":
+        nbytes, t_ops = 8 * n * B, 3 * n * n * B / LANE_OPS_PER_S
+    elif name == "mont_mul_tc":
+        nbytes = 12 * n * B
+        t_ops = max(3 * n * n * B / LANE_OPS_PER_S,
+                    24 * n * n * B / TENSOR_INT8_OPS_PER_S)
     else:
-        nbytes, ops = 8 * n * B, 3 * n * n * B
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / LANE_OPS_PER_S
+        nbytes, t_ops = 12 * n * B, 6 * n * n * B / LANE_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -139,33 +189,6 @@ def check_model(spec, a, b, out, lanes=16):
             fail(f"{spec.name} lane {j}: kernel output disagrees with the model")
 
 
-def time_ms(fn, iters, graph=False):
-    """Mean milliseconds per call of fn between CUDA events. Eager, a call
-    costs what the host spends issuing it whenever that exceeds the card's
-    time; with graph=True the calls are captured once into a CUDA graph and
-    replayed, so the events time the card's work alone."""
-    fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(iters):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        t0.record()
-        g.replay()
-        t1.record()
-    else:
-        t0.record()
-        for _ in range(iters):
-            fn()
-        t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -175,74 +198,91 @@ def phase_device():
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     print(smi.stdout.strip(), flush=True)
     info = kernels.build()
-    regs = [l.strip() for l in info["ptxas"].splitlines()
-            if any(w in l for w in ("entry function", "registers", "spill"))]
+    regs = kernels.ptxas_report(info["ptxas"])
+    imma = kernels.sass_count("IMMA")  # the integer tensor-core instruction
+    if imma == 0:
+        fail("the built library holds no IMMA instruction: mont_mul_tc "
+             "does not reach the tensor cores")
     line({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "build_s": info["seconds"], "built": info["built"],
-          "library": info["path"], "ptxas_registers": regs})
+          "library": info["path"], "sources": [f.name for f in kernels.sources()],
+          "sass_imma_instructions": "not measured" if imma is None else imma,
+          "ptxas": regs})
     return smi.stdout.strip()
+
+
+def max_err(got, want):
+    return int((got.long() - want.long()).abs().max())
 
 
 def phase_kernels():
     gen = torch.Generator(device=DEV)
     gen.manual_seed(20261016)
-    max_err = {"mont_mul": 0, "mont_redc": 0}
+    worst = {name: 0 for name in KERNEL_INFO}
+
+    def hold(name, what, got, want):
+        err = max_err(got, want)
+        worst[name] = max(worst[name], err)
+        if err:
+            fail(f"{name} {what}: max |kernel - plain| = {err}")
+
     checked = 0
     for n, spec in SPECS.items():
         for B in WIDTHS:
             a, b = lazy_batch(spec, B, gen), lazy_batch(spec, B, gen)
             got = F.mont_mul(spec, a, b)
-            want = F._mul_plain(spec, a, b)
-            err = int((got.long() - want.long()).abs().max())
-            max_err["mont_mul"] = max(max_err["mont_mul"], err)
-            if err:
-                fail(f"mont_mul n={n} B={B}: max |kernel - plain| = {err}")
+            hold("mont_mul", f"n={n} B={B}", got, F._mul_plain(spec, a, b))
             got_r = F.mont_redc(spec, a)
-            want_r = F._redc_plain(spec, a)
-            err = int((got_r.long() - want_r.long()).abs().max())
-            max_err["mont_redc"] = max(max_err["mont_redc"], err)
-            if err:
-                fail(f"mont_redc n={n} B={B}: max |kernel - plain| = {err}")
+            hold("mont_redc", f"n={n} B={B}", got_r, F._redc_plain(spec, a))
+            got_tc = F.mont_mul_tc(spec, a, b)
+            hold("mont_mul_tc", f"n={n} B={B}", got_tc, F._mul_tc_plain(spec, a, b))
+            hold("mont_mul_tc", f"n={n} B={B} against mont_mul", got_tc, got)
+            if n == 25:
+                for th in kernels.SHAPE_THREADS:
+                    hold("mont_mul_shape", f"threads={th} B={B}",
+                         F.mont_mul_shape(spec, a, b, th), F._mul_plain(spec, a, b))
             if B == 127:
                 check_model(spec, a, b, got)
+                check_model(spec, a, b, got_tc)
                 check_model(spec, a, None, got_r)
             checked += 1
     torch.cuda.synchronize()
-    line({"phase": "kernels_exact", "cases": checked, "max_abs_err": max_err,
-          "widths": WIDTHS, "limbs": list(SPECS)})
-    # timing at the widths the main path launches (FQ, n = 25): the fold's
-    # complete adds (6 x 2048 lanes), to_affine's inversion and the Miller
-    # loop's infinity tests (2 lanes), the pairing's Fq12 products at batch
-    # 2 (54 x 2), the zero tests of f12_is_one (12 x 1), and 2^20 lanes
-    spec = F.FQ
-    shapes = {"mont_mul": [2, 108, 12288, 1 << 20],
-              "mont_redc": [2, 12, 1 << 20]}
-    main_width = {"mont_mul": 12288, "mont_redc": 2}
+    line({"phase": "kernels_exact", "cases": checked, "max_abs_err": worst,
+          "widths": WIDTHS, "limbs": list(SPECS),
+          "shape_threads": list(kernels.SHAPE_THREADS)})
+
+    def timed_row(name, spec, B, call, plain_call, extra=()):
+        hold(name, f"n={spec.n} B={B} (timed inputs)", call(), plain_call())
+        iters = 200 if B < 100000 else 20
+        bms, by = bound(name, spec.n, B)
+        return {"n": spec.n, "B": B, **dict(extra), "max_abs_err": 0,
+                "ms": time_ms(call, iters, graph=True),
+                "eager_ms": time_ms(call, iters),
+                "plain_ms": time_ms(plain_call, 3 if B > 100000 else 20),
+                "bound_ms": bms, "bound_by": by}
+
     rows = {}
-    for name, widths in shapes.items():
-        kern = F.mont_mul if name == "mont_mul" else F.mont_redc
-        plain = F._mul_plain if name == "mont_mul" else F._redc_plain
-        per_width = []
-        for B in widths:
+    for name, shapes in TIMED.items():
+        kern = {"mont_mul": F.mont_mul, "mont_redc": F.mont_redc,
+                "mont_mul_tc": F.mont_mul_tc}[name]
+        rows[name] = []
+        for n, B in shapes:
+            spec = SPECS[n]
             a, b = lazy_batch(spec, B, gen), lazy_batch(spec, B, gen)
-            args = (a, b) if name == "mont_mul" else (a,)
-            err = int((kern(spec, *args).long()
-                       - plain(spec, *args).long()).abs().max())
-            max_err[name] = max(max_err[name], err)
-            if err:
-                fail(f"{name} n=25 B={B}: max |kernel - plain| = {err}")
-            iters = 200 if B < 100000 else 20
-            ms = time_ms(lambda: kern(spec, *args), iters, graph=True)
-            eager_ms = time_ms(lambda: kern(spec, *args), iters)
-            plain_ms = time_ms(lambda: plain(spec, *args), 3 if B > 100000 else 20)
-            bms, by = bound(name, spec.n, B)
-            per_width.append({"B": B, "max_abs_err": err, "ms": ms, "eager_ms": eager_ms,
-                              "plain_ms": plain_ms, "bound_ms": bms,
-                              "bound_by": by})
-        rows[name] = per_width
-    return rows, main_width, max_err
+            args = (a,) if name == "mont_redc" else (a, b)
+            rows[name].append(timed_row(
+                name, spec, B, lambda: kern(spec, *args),
+                lambda: PLAIN[name](spec, *args)))
+    a, b = lazy_batch(F.FQ, SHAPE_B, gen), lazy_batch(F.FQ, SHAPE_B, gen)
+    rows["mont_mul_shape"] = [
+        timed_row("mont_mul_shape", F.FQ, SHAPE_B,
+                  lambda th=th: F.mont_mul_shape(F.FQ, a, b, th),
+                  lambda: F._mul_plain(F.FQ, a, b), extra={"threads": th}.items())
+        for th in kernels.SHAPE_THREADS
+    ]
+    return rows, worst
 
 
 def tamper_first_lane(pt):
@@ -324,7 +364,7 @@ def device_profile(sigs, hashes, apk):
     }
 
 
-def phase_main(n_messages=524288, n_validators=100, n_iter=5,
+def phase_main(n_messages=524288, n_validators=100, n_iter=2,
                n_seed=bench.N_SEED):
     t0 = time.perf_counter()
     sigs, hashes, apk = bench.build_inputs(n_messages, n_validators,
@@ -338,8 +378,8 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=5,
     bench.warm_up(sigs, hashes, apk)
     warm_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in F.KERNELS}
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("mont_mul", "mont_redc"):
+        if launches[name] <= 0:
             fail(f"main path: kernel {name} was not launched")
     stages, state = stage_breakdown(sigs, hashes, apk)
     # host check of the P legs: lane k*N_SEED + i holds (k+1) H_i, so the
@@ -359,30 +399,126 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=5,
     line({"phase": "main_path", "messages": n_messages,
           "validators": n_validators, "groups": 1, "input_build_s": build_s,
           "warmup_s": warm_s, "launches_per_verify": launches,
+          "timed_verifications": n_iter,
           "p_aff_equal_host": True, "tampered_ok": False})
     line(metric)
     return launches
 
 
+def phase_shape_sweep():
+    """The launch-shape sweep through its script's entry point, with the
+    counts set to 0 just before and read just after."""
+    F.reset_launches()
+    rows = prof_field.sweep(B=SHAPE_B)
+    launches = {k.name: k.launches for k in F.KERNELS}
+    if not all(r["equal"] for r in rows):
+        fail("shape sweep: a block size's chain differs from mont_mul's")
+    if launches["mont_mul_shape"] <= 0:
+        fail("shape sweep: mont_mul_shape was not launched")
+    line({"phase": "shape_sweep", "B": SHAPE_B, "rows": rows, "launches": launches})
+    return launches
+
+
+def add_launches(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def msm_profile(accel, bases, ss):
+    """One MSM under torch.profiler: the summed time of all kernels on the
+    card against the wall time of its device stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        accel.g1.msm(bases, ss)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    wall = sum(v["total_s"] for k, v in profiling.report().items()
+               if k in ("msm.pack_bases", "msm.device"))
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return {"phase": "prover_msm_profile", "pack_and_device_wall_s": wall,
+            "device_busy_s": busy if busy else "not measured",
+            "device_busy_share": busy / wall if busy else "not measured",
+            "kernel_launches": sum(e.count for e in kern),
+            "top_kernels": [{"name": e.key[:60], "count": e.count,
+                             "device_s": e.self_device_time_total / 1e6} for e in top],
+            "note": "profiled run; the profiler adds host time per launch"}
+
+
+def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
+    """The prover's device stages through DeviceAccel("bw6_761"), first
+    with mont_mul, then the MSM and the h-polynomial again with every
+    multiply through mont_mul_tc. Returns the launches of each run."""
+    engine = BW6_761_ENGINE
+    accel = DeviceAccel("bw6_761", DEV)
+    B, d = 1 << lg_msm, 1 << lg_ntt
+    cios = {}
+    with F.mul_kernel("cios"):
+        ks, bases, res = prover.fixed_base_stage(accel, engine, B, seed)
+        results = [res]
+        point, res = prover.msm_stage(accel, engine, bases, ks, seed + 1)
+        results.append(res)
+        h, res = prover.h_stage(accel, engine, d, seed + 2)
+        results.append(res)
+        results.append(prover.h_dense(accel, engine, 1 << 12, seed + 3))
+        results.append(prover.ntt_stage(dntt.ntt_fr, d, seed + 4, DEV))
+        for res in results:
+            line({"phase": "prover", "mul": "cios", **res})
+            if not res["ok"]:
+                fail(f"prover path: stage {res['stage']} disagrees with its host oracle")
+            add_launches(cios, res.get("launches", {}))
+        if cios["mont_mul"] <= 0 or cios["mont_redc"] <= 0 or cios["mont_mul_tc"]:
+            fail(f"prover path: unexpected launch counts {cios}")
+        rnd = random.Random(seed + 5)
+        line(msm_profile(accel, bases, [rnd.randrange(engine.fr) for _ in range(B)]))
+    tc = {}
+    with F.mul_kernel("tc"):
+        point_tc, res = prover.msm_stage(accel, engine, bases, ks, seed + 1)
+        h_tc, res_h = prover.h_stage(accel, engine, d, seed + 2, points=0)
+        for res in (res, res_h):
+            line({"phase": "prover", "mul": "tc", **res})
+            add_launches(tc, res["launches"])
+        if not res["ok"] or point_tc != point:
+            fail("prover path (tc): the MSM result differs")
+        if not (h_tc.limbs == h.limbs).all():
+            fail("prover path (tc): the h-polynomial's limbs differ")
+        if tc["mont_mul_tc"] <= 0 or tc["mont_mul"] != 0:
+            fail(f"prover path (tc): not every multiply went through mont_mul_tc: {tc}")
+    line({"phase": "prover_path", "msm_points": B, "h_domain": d,
+          "launches_cios": cios, "launches_tc": tc,
+          "msm_equal_host": True, "tc_equal_cios": True})
+    return cios, tc
+
+
 def main():
     t_start = time.perf_counter()
     smi = phase_device()
-    rows, main_width, max_err = phase_kernels()
+    rows, worst = phase_kernels()
     phase_entry()
-    launches = phase_main()
+    by_path = {"verify": phase_main(), "shape_sweep": phase_shape_sweep()}
+    by_path["prover_cios"], by_path["prover_tc"] = phase_prover()
     out = []
     for name, per_width in rows.items():
-        main = next(r for r in per_width if r["B"] == main_width[name])
+        if name == "mont_mul_shape":
+            main_row = next(r for r in per_width if r["threads"] == 128)
+        else:
+            main_row = next(r for r in per_width
+                            if (r["n"], r["B"]) == MAIN_WIDTH[name])
         out.append({
             "name": name, "route": "cuda",
             **KERNEL_INFO[name],
-            "launches": launches[name],
-            "max_abs_err": max_err[name],
-            "ms": main["ms"], "eager_ms": main["eager_ms"],
-            "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            "max_abs_err": worst[name],
+            "ms": main_row["ms"], "eager_ms": main_row["eager_ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
             "library_ms": None, "library_note": NO_LIBRARY,
-            "n": 25, "B": main["B"], "widths": per_width,
+            "n": main_row["n"], "B": main_row["B"], "widths": per_width,
             "card": smi,
         })
     line({"kernels": out})

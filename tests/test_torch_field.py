@@ -7,10 +7,17 @@ multiply kernel; the port's multiply is the plain version of its mont_mul
 kernel. Both compute (A B + m p) / R with A = a + 256p, so the limbs must be
 equal. The port's REDC follows the Pallas REDC kernel, REDC(x + 256p),
 while the JAX CPU path reduces with mul_conv by a raw 1, which may differ
-by exactly p: those two are compared mod p and through is_zero_many."""
+by exactly p: those two are compared mod p and through is_zero_many.
+
+The tensor-core multiply's plain version (_mul_tc_plain) is held limb for
+limb against mul_conv at every width, and against the Pallas kernel it
+ports (_make_pallas_mul_mxu, jitted in interpret mode) at n = 17 and 25.
+At n = 49 the interpreted Pallas kernel does not compile within minutes on
+the CPU, so there the comparison is against mul_conv alone."""
 
 import random
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +25,10 @@ import torch
 
 from celo_bls_snark_tpu.ops import field as jf
 from celo_bls_snark_tpu_torch.ops import field as tf
+
+# one thread: the plain versions loop over small tensors, and the test
+# suite's parallel workers would otherwise contend for every core
+torch.set_num_threads(1)
 
 SPECS = [
     pytest.param(jf.FQ, tf.FQ, jf.fq, tf.fq, id="fq377"),
@@ -189,11 +200,113 @@ def test_wrappers_route_cpu_to_plain_and_count_only_launches():
     tf.reset_launches()
     tf.fq.mul(a, a)
     tf.fq.is_zero(a)
-    assert [k.launches for k in tf.KERNELS] == [0, 0]
+    with tf.mul_kernel("tc"):
+        tf.fq.mul(a, a)
+    tf.mont_mul_shape(tf.FQ, a, a, 64)
+    assert [k.name for k in tf.KERNELS] == [
+        "mont_mul", "mont_redc", "mont_mul_tc", "mont_mul_shape"]
+    assert [k.launches for k in tf.KERNELS] == [0, 0, 0, 0]
     with pytest.raises(ValueError):
         tf.mont_mul(tf.FQ, a.to(torch.int64), a.to(torch.int64))
     with pytest.raises(ValueError):
         tf.mont_redc(tf.FQ, a.to("meta"))
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_mul_tc_plain_limb_exact_against_mul_conv(js, ts, jops, tops):
+    rng = random.Random(10)
+    a, b = lazy_inputs(js, rng), lazy_inputs(js, rng)
+    want = np.asarray(jops.mul_conv(jnp.asarray(a), jnp.asarray(b)))
+    got = tf._mul_tc_plain(ts, t(a), t(b)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, tf._mul_plain(ts, t(a), t(b)).numpy())
+    with tf.mul_kernel("tc"):
+        np.testing.assert_array_equal(tops.mul(t(a), t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS[:2])
+def test_mul_tc_plain_limb_exact_against_pallas_mxu_interpret(js, ts, jops, tops):
+    """The Pallas kernel takes blocks of 128 lanes: B = 128, lazy inputs
+    with the edge values 0, 1 and p-1 in the first lanes."""
+    rng = random.Random(11)
+    a, b = lazy_inputs(js, rng, 128), lazy_inputs(js, rng, 128)
+    pallas = jax.jit(jf._make_pallas_mul_mxu(js, interpret=True))
+    want = np.asarray(pallas(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(tf._mul_tc_plain(ts, t(a), t(b)).numpy(), want)
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_tc_weights_are_the_toeplitz_matrices_of_nprime_and_p(js, ts, jops, tops):
+    """W1 x pieces(x) are the radix-2^8 columns of x N' mod R and W2 x
+    pieces(m) those of m p, for python ints; the padded form the kernel
+    reads only adds zero rows and columns."""
+    rng = random.Random(12)
+    n, R = ts.n, 1 << (16 * ts.n)
+    W1, W2 = tf.tc_weights(ts)
+    assert W1.shape == (2 * n, 2 * n) and W2.shape == (4 * n, 2 * n)
+    nprime = tf.limbs_to_int(ts.nprime_limbs)
+    for x in (0, 1, R - 1, rng.randrange(R)):
+        pieces = np.array([(x >> (8 * k)) & 0xFF for k in range(2 * n)], np.int64)
+        col = lambda W: sum(int(v) << (8 * k) for k, v in enumerate(W.astype(np.int64) @ pieces))  # noqa: E731
+        assert col(W1) % R == x * nprime % R
+        assert col(W2) == x * ts.modulus
+    P1, P2 = tf.tc_weights(ts, rows_to=16, depth_to=32)
+    assert P1.shape[0] % 16 == 0 and P2.shape[0] % 16 == 0 and P1.shape[1] % 32 == 0
+    np.testing.assert_array_equal(P1[: 2 * n, : 2 * n], W1)
+    np.testing.assert_array_equal(P2[: 4 * n, : 2 * n], W2)
+    assert P1.sum() == W1.sum() and P2.sum() == W2.sum()
+
+
+def test_mul_kernel_selector(monkeypatch):
+    """`mul` reads one module-level choice: mont_mul by default, the
+    tensor-core multiply with CELO_MUL_MXU=1 at first use (as in the JAX
+    package) or inside mul_kernel("tc")."""
+    monkeypatch.setattr(tf, "_mul_choice", None)
+    monkeypatch.delenv("CELO_MUL_MXU", raising=False)
+    assert tf.selected_mul() is tf.mont_mul
+    with tf.mul_kernel("tc"):
+        assert tf.selected_mul() is tf.mont_mul_tc
+        with tf.mul_kernel("cios"):
+            assert tf.selected_mul() is tf.mont_mul
+        assert tf.selected_mul() is tf.mont_mul_tc
+    assert tf.selected_mul() is tf.mont_mul
+    monkeypatch.setattr(tf, "_mul_choice", None)
+    monkeypatch.setenv("CELO_MUL_MXU", "1")
+    assert tf.selected_mul() is tf.mont_mul_tc
+    with pytest.raises(ValueError):
+        with tf.mul_kernel("mxu"):
+            pass
+    assert tf.ops_for(tf.FQ761) is tf.fq761 and tf.ops_for(tf.FR) is tf.fr
+
+
+def test_mont_mul_shape_routes_and_validates():
+    rng = random.Random(13)
+    a, b = t(lazy_inputs(jf.FQ, rng, 8)), t(lazy_inputs(jf.FQ, rng, 8))
+    for threads in (32, 64, 128, 256, 512):
+        np.testing.assert_array_equal(
+            tf.mont_mul_shape(tf.FQ, a, b, threads).numpy(),
+            tf._mul_plain(tf.FQ, a, b).numpy())
+    with pytest.raises(ValueError):
+        tf.mont_mul_shape(tf.FQ, a, b, 96)
+    x = t(lazy_inputs(jf.FR, rng, 8))
+    with pytest.raises(ValueError):
+        tf.mont_mul_shape(tf.FR, x, x, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_mul_tc_equals_plain_and_mont_mul_on_card(js, ts, jops, tops):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    rng = random.Random(14)
+    a = t(lazy_inputs(js, rng, 300)).cuda()
+    b = t(lazy_inputs(js, rng, 300)).cuda()
+    before = tf.mont_mul_tc.launches
+    got = tf.mont_mul_tc(ts, a, b)
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  tf._mul_tc_plain(ts, a.cpu(), b.cpu()).numpy())
+    assert torch.equal(got, tf.mont_mul(ts, a, b))
+    assert tf.mont_mul_tc.launches == before + 1
 
 
 @pytest.mark.gpu
