@@ -10,44 +10,66 @@
 //
 // mont_mul<N> replaces the Pallas kernel _make_pallas_mul of the JAX
 // package's ops/field.py. Each operand gets the offset 256p added and is
-// normalized to canonical limbs by one signed ripple; then a 16-bit-radix
-// CIOS computes (A B + m p) / R with m = -A B p^-1 mod R. The 16-bit radix
-// is kept on purpose: a 32-bit-word CIOS would divide by 2^(32 ceil(n/2)),
-// which is not R when n is odd (2^416 != 2^400 for n = 25). The output is
-// the same integer as the reference's mul_conv, so its canonical limbs are
-// the same.
+// normalized by one signed ripple as it is loaded, packed two limbs to a
+// 32-bit word; the mixed-radix interleaved Montgomery rounds of
+// field_common.cuh (W - 1 rounds of 32 bits and one of 16, W = ceil(n / 2))
+// then give (A B + m p) / R with m = -A B p^-1 mod R, the same integer as
+// the reference's mul_conv and the 16-bit-radix kernel's, so the same
+// canonical limbs.
 //
 // mont_redc<N> replaces ops/field.py::_make_pallas_redc: the same offset
-// and normalization, then REDC alone, (x + 256p + m p) / R. This is the
-// value model of the Pallas kernel; the JAX CPU path (mul_conv by a raw 1)
-// may differ from it by exactly p, which no zero test can see.
+// and normalization, then REDC alone in 16-bit radix, (x + 256p + m p) / R.
+// This is the value model of the Pallas kernel; the JAX CPU path (mul_conv
+// by a raw 1) may differ from it by exactly p, which no zero test can see.
 //
-// Design. One thread per lane, all limbs in registers (for N = 25: a[25],
-// b[25] and t[27] as uint32), every loop unrolled at compile time so that
-// no array index is dynamic. Limb k of neighbouring lanes lies at
-// neighbouring addresses, so each limb load and store is coalesced. The
-// kernel masks the ragged edge itself: the caller pads nothing. The field
-// constants (p, the offset 256p and n0inv = -p^-1 mod 2^16) come in as a
-// kernel parameter, so one source serves every field.
+// mont_mul16<N, THREADS> is the 16-bit-radix CIOS multiply that mont_mul
+// was before the word form. It stays as the body of celo_mont_mul_shape
+// (the block-width sweep) and so gives the old design's time beside the new
+// one's, in the same run on the same card.
 //
-// What bounds it: per lane about 2 n^2 32-bit multiplies and 4 n^2
-// add/shift/mask operations (half of each for mont_redc) against 12 n
-// bytes moved (8 n for mont_redc): at n = 25 that is 12.5 integer
-// operations per byte, above the H100's 10 lane instructions per byte of
-// HBM bandwidth, so it is bound by the integer pipes. This first
-// version is simple and exact; making it fast (wide multiply-add chains,
-// fewer mask/shift pairs, more lanes per thread) is later work.
+// Design of mont_mul. One thread per lane, a, b and the running sum t as W
+// words in registers (a, b and the two arrays of the running sum, 4 W + 2
+// words: 102 at n = 49, where the 16-bit form held 3 n + 2 = 149), every
+// loop unrolled so that no array index is dynamic and a round renames
+// registers instead of shifting them. Limb k of
+// neighbouring lanes lies at neighbouring addresses, so each limb load and
+// store is coalesced; each operand byte is read once, straight into
+// registers, so shared memory and TMA have nothing to give here. The kernel
+// masks the ragged edge itself: the caller pads nothing. The field
+// constants come in as a kernel parameter, so one source serves every
+// field. Below one warp per warp scheduler (B <= 32 x 4 x the SM count) the
+// time is the latency of one thread's chain, and blocks of one warp spread
+// the lanes over all schedulers; above it blocks of 128 threads, four to an
+// SM (128 registers a thread at n = 49, no spill).
+//
+// What bounds it: per lane 2 W^2 word products, 4 W^2 32-bit multiply
+// instructions counted as a low and a high half each (half of that for
+// mont_redc's work), against 12 n bytes moved (8 n for mont_redc). At the
+// card's rates (3.35 TB/s; 33.5e12 lane instructions/s) the bytes are the
+// larger time at every n: 0.18 ns a lane against 0.075 ns at n = 49. The
+// rounds are carry chains of IMAD.WIDE.U32.X (field_common.cuh): one
+// instruction a word product, 872 instructions a lane at n = 25 (2,272 at
+// n = 49) where the 16-bit form spends 5,528 and plain C on uint64_t spent
+// 1,448 (a wide multiply-add and two to three carry adds a product). At
+// 2^20 lanes it runs at 0.8 of the byte bound at n = 17, 25 and 49; at a few
+// thousand lanes the time is one warp's chain, about 2.5 us. One lane a
+// thread: two lanes a thread at n = 17 and 25 were tried and were slower at
+// the small widths (half the warps) and no faster at the large ones.
 
 #include "field_common.cuh"
 
 namespace {
 
 using celo::FieldConsts;
-using celo::fill_consts;
 using celo::kMask;
+using celo::limb_of;
 using celo::load_normalized;
+using celo::load_words;
+using celo::mont_mul_words;
+using celo::words_of;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;    // threads a block at full width
+constexpr int kThreadsSmall = 32;  // below one warp per warp scheduler
 
 // one CIOS reduction row: t += m p with m = t[0] n0inv mod 2^16, then
 // t /= 2^16 (t[0] becomes divisible by 2^16; its high half moves to t[1])
@@ -81,12 +103,31 @@ __device__ __forceinline__ void store_carried(int32_t* __restrict__ out,
     }
 }
 
-// THREADS is the block size the kernel is compiled for: the register
-// budget ptxas works to follows from it (65,536 / THREADS, at most 255)
-template <int N, int THREADS>
-__global__ void __launch_bounds__(THREADS)
+// the word-form multiply: see the header, and field_common.cuh for the rounds
+template <int N>
+__global__ void __launch_bounds__(kThreads, 4)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t B, FieldConsts c) {
+    constexpr int W = words_of(N);
+    const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (lane >= B) return;
+    uint32_t aw[W], bw[W], t[W];
+    load_words<N>(a, lane, B, c, aw);
+    load_words<N>(b, lane, B, c, bw);
+    mont_mul_words<W>(aw, bw, c, t);
+    // t holds the product times 2^16: its limbs 1..n are the result's
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+        out[k * B + lane] = static_cast<int32_t>(limb_of<W>(t, k + 1));
+}
+
+// The 16-bit-radix CIOS multiply. THREADS is the block size the kernel is
+// compiled for: the register budget ptxas works to follows from it
+// (65,536 / THREADS, at most 255)
+template <int N, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+mont_mul16_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                  int32_t* __restrict__ out, int64_t B, FieldConsts c) {
     const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (lane >= B) return;
     uint32_t an[N], bn[N];
@@ -128,8 +169,29 @@ mont_redc_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
     store_carried<N>(out, lane, B, t);
 }
 
-unsigned grid_for(int64_t B, int threads = kThreads) {
+unsigned grid_for(int64_t B, int threads) {
     return static_cast<unsigned>((B + threads - 1) / threads);
+}
+
+// lanes up to which every warp can have a warp scheduler of its own
+// (4 an SM); 0 until the first call asks the device
+int64_t one_warp_a_scheduler() {
+    static int64_t lanes = 0;
+    if (lanes == 0) {
+        int dev = 0, sms = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess ||
+            cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            return 0;
+        lanes = static_cast<int64_t>(sms) * 4 * 32;
+    }
+    return lanes;
+}
+
+template <int N>
+void launch_mul(const int32_t* a, const int32_t* b, int32_t* out, int64_t B,
+                const FieldConsts& c, cudaStream_t s) {
+    const int threads = B <= one_warp_a_scheduler() ? kThreadsSmall : kThreads;
+    mont_mul_kernel<N><<<grid_for(B, threads), threads, 0, s>>>(a, b, out, B, c);
 }
 
 }  // namespace
@@ -137,65 +199,57 @@ unsigned grid_for(int64_t B, int threads = kThreads) {
 // Plain C interface (loaded with ctypes). Each function launches on
 // `stream`, does not synchronize, and returns cudaGetLastError() (0 when
 // the launch was accepted). Pointers are device pointers to contiguous
-// [n, B] int32 arrays; the field constants are host arrays of n entries.
-extern "C" int celo_mont_mul(int n, const uint32_t* p, const int32_t* offset,
-                             uint32_t n0inv, const int32_t* a,
+// [n, B] int32 arrays; `c` is a host pointer to the field's constants, laid
+// out as celo::FieldConsts (ops/kernels.py builds it from the field's spec).
+extern "C" int celo_mont_mul(int n, const FieldConsts* c, const int32_t* a,
                              const int32_t* b, int32_t* out, int64_t B,
                              void* stream) {
-    FieldConsts c;
-    int err = fill_consts(n, p, offset, n0inv, &c);
-    if (err) return err;
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (n) {
-        case 17: mont_mul_kernel<17, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
-        case 25: mont_mul_kernel<25, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
-        case 49: mont_mul_kernel<49, kThreads><<<grid_for(B), kThreads, 0, s>>>(a, b, out, B, c); break;
+        case 17: launch_mul<17>(a, b, out, B, *c, s); break;
+        case 25: launch_mul<25>(a, b, out, B, *c, s); break;
+        case 49: launch_mul<49>(a, b, out, B, *c, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int celo_mont_redc(int n, const uint32_t* p, const int32_t* offset,
-                              uint32_t n0inv, const int32_t* x, int32_t* out,
-                              int64_t B, void* stream) {
-    FieldConsts c;
-    int err = fill_consts(n, p, offset, n0inv, &c);
-    if (err) return err;
+extern "C" int celo_mont_redc(int n, const FieldConsts* c, const int32_t* x,
+                              int32_t* out, int64_t B, void* stream) {
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const unsigned grid = grid_for(B, kThreads);
     switch (n) {
-        case 17: mont_redc_kernel<17><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
-        case 25: mont_redc_kernel<25><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
-        case 49: mont_redc_kernel<49><<<grid_for(B), kThreads, 0, s>>>(x, out, B, c); break;
+        case 17: mont_redc_kernel<17><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
+        case 25: mont_redc_kernel<25><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
+        case 49: mont_redc_kernel<49><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-// mont_mul at n = 25 with the block size chosen by the caller (32, 64, 128,
-// 256 or 512 threads): replaces the block-width sweep kernel make_mul of the
-// JAX package's scripts/prof_field.py. Bound by the integer pipes like
-// celo_mont_mul; each block size is its own instantiation, so the sweep
-// shows what registers per thread and blocks per SM do to the same source.
-extern "C" int celo_mont_mul_shape(int n, const uint32_t* p,
-                                   const int32_t* offset, uint32_t n0inv,
+// The 16-bit-radix multiply at n = 25 with the block size chosen by the
+// caller (32, 64, 128, 256 or 512 threads): replaces the block-width sweep
+// kernel make_mul of the JAX package's scripts/prof_field.py. It is bound
+// by the bytes like celo_mont_mul and runs far above that bound, on about
+// 10 n^2 integer instructions a lane; each block size is its own
+// instantiation, so the sweep shows what registers per thread and blocks
+// per SM do to the same source.
+extern "C" int celo_mont_mul_shape(int n, const FieldConsts* c,
                                    const int32_t* a, const int32_t* b,
                                    int32_t* out, int64_t B, int threads,
                                    void* stream) {
-    FieldConsts c;
-    int err = fill_consts(n, p, offset, n0inv, &c);
-    if (err) return err;
     if (n != 25) return static_cast<int>(cudaErrorInvalidValue);
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const unsigned grid = grid_for(B, threads);
     switch (threads) {
-        case 32: mont_mul_kernel<25, 32><<<grid, 32, 0, s>>>(a, b, out, B, c); break;
-        case 64: mont_mul_kernel<25, 64><<<grid, 64, 0, s>>>(a, b, out, B, c); break;
-        case 128: mont_mul_kernel<25, 128><<<grid, 128, 0, s>>>(a, b, out, B, c); break;
-        case 256: mont_mul_kernel<25, 256><<<grid, 256, 0, s>>>(a, b, out, B, c); break;
-        case 512: mont_mul_kernel<25, 512><<<grid, 512, 0, s>>>(a, b, out, B, c); break;
+        case 32: mont_mul16_kernel<25, 32><<<grid, 32, 0, s>>>(a, b, out, B, *c); break;
+        case 64: mont_mul16_kernel<25, 64><<<grid, 64, 0, s>>>(a, b, out, B, *c); break;
+        case 128: mont_mul16_kernel<25, 128><<<grid, 128, 0, s>>>(a, b, out, B, *c); break;
+        case 256: mont_mul16_kernel<25, 256><<<grid, 256, 0, s>>>(a, b, out, B, *c); break;
+        case 512: mont_mul16_kernel<25, 512><<<grid, 512, 0, s>>>(a, b, out, B, *c); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());

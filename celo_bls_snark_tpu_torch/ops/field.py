@@ -21,13 +21,15 @@ version beside the kernel, a CUDA tensor to the kernel (csrc/), anything
 else raises. There is no fallback from the card to the plain version.
 
   mont_mul        lazy a, b -> canonical limbs of (A B + m p) / R, where
-                  A = a + 256p, B = b + 256p and m = -A B p^-1 mod R
+                  A = a + 256p, B = b + 256p and m = -A B p^-1 mod R; in
+                  32-bit words inside, mixed radix (see _mul_words_plain)
   mont_mul_tc     the same function in separated form, with the two
                   constant-operand products of the reduction on the tensor
                   cores; `mul` uses it under mul_kernel("tc") or with
                   CELO_MUL_MXU=1 in the environment
-  mont_mul_shape  mont_mul at n = 25 with the threads per block chosen by
-                  the caller (scripts/prof_field.py's sweep)
+  mont_mul_shape  the same function at n = 25 by the 16-bit-radix kernel,
+                  with the threads per block chosen by the caller
+                  (scripts/prof_field.py's sweep)
   mont_redc       lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
 
 Host oracle: hostmath/fp.py.
@@ -44,6 +46,8 @@ from . import kernels
 
 LIMB_BITS = 16
 LIMB_MASK = (1 << LIMB_BITS) - 1
+WORD_BITS = 32  # the word-form multiplies pack two limbs to a word
+WORD_MASK = (1 << WORD_BITS) - 1
 LAZY_P_BUDGET = 256  # |value| < LAZY_P_BUDGET * p between multiplies
 
 
@@ -78,10 +82,17 @@ class FieldSpec:
         self.mont_r = (1 << (LIMB_BITS * self.n)) % modulus
         self.mont_r2 = self.mont_r * self.mont_r % modulus
         self.n0inv = (-pow(modulus, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)
+        self.n0inv32 = (-pow(modulus, -1, 1 << WORD_BITS)) % (1 << WORD_BITS)
         nprime = (-pow(modulus, -1, 1 << (LIMB_BITS * self.n))) % (
             1 << (LIMB_BITS * self.n)
         )
         self.p_limbs = int_to_limbs(modulus, self.n)
+        # p in 32-bit words, for the word-form multiplies: ceil(n / 2) words
+        self.n_words = (self.n + 1) // 2
+        self.p_words = np.array(
+            [(modulus >> (WORD_BITS * j)) & WORD_MASK for j in range(self.n_words)],
+            dtype=np.int64,
+        )
         self.nprime_limbs = int_to_limbs(nprime, self.n)
         self.offset_limbs = int_to_limbs(LAZY_P_BUDGET * modulus, self.n)
         # CIOS soundness: inputs < 2*BUDGET*p must give outputs < 2p
@@ -178,8 +189,8 @@ FQ761 = FieldSpec(BW6_P, "fq761")
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch versions of the two kernels (int64: m * p_j and the column
-# sums overflow int32, and torch.uint32 lacks most CPU operations)
+# Plain PyTorch versions of the kernels (int64: m * p_j and the column sums
+# overflow int32, and torch.uint32 lacks most CPU operations)
 # ---------------------------------------------------------------------------
 
 def _normalize_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
@@ -207,10 +218,11 @@ def _carry_out(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
 
 
 def _mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version of mont_mul; a, b: [n, B] int32. The same integer
-    as the JAX package's mul_conv, in absolute-column CIOS form: row i adds
-    a_i * b and m_i * p at columns i..i+n-1 and carries column i's high
-    part into column i+1; columns n..2n then hold (A B + m p) / R."""
+    """The plain version of the 16-bit-radix multiply (mont_mul_shape's
+    kernel); a, b: [n, B] int32. The same integer as the JAX package's
+    mul_conv, in absolute-column CIOS form: row i adds a_i * b and m_i * p
+    at columns i..i+n-1 and carries column i's high part into column i+1;
+    columns n..2n then hold (A B + m p) / R."""
     n, B = spec.n, a.shape[1]
     ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
     an, bn = ab[:, :B], ab[:, B:]
@@ -222,6 +234,66 @@ def _mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
         T[i : i + n] += m * p
         T[i + 1] += T[i] >> LIMB_BITS
     return _carry_out(spec, T[n:])
+
+
+def _words(limbs16: torch.Tensor) -> torch.Tensor:
+    """[n, B] canonical limbs, n odd -> the n // 2 full 32-bit words
+    (limb 2j | limb 2j+1 << 16); the top limb stays a half word."""
+    return limbs16[0:-1:2] + (limbs16[1::2] << LIMB_BITS)
+
+
+def _mul_words_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                     digits: list = None) -> torch.Tensor:
+    """The plain version of mont_mul: the kernel's mixed-radix rounds, one
+    by one. Rounds 0 .. n // 2 - 1 each take a full 32-bit word a_i of A:
+    T += a_i B, m_i = T_0 n0inv32 mod 2^32, T += m_i p, drop 32 bits; the
+    last round takes A's top limb with m = T_0 n0inv mod 2^16 and drops 16
+    bits. Together they divide by 2^(32 (n // 2) + 16) = R, and the digits
+    m_i concatenate to m = -A B p^-1 mod R (appended to `digits`, when
+    given, as [B] tensors). T is held as 16-bit-radix columns in int64, so
+    a word product is two 32 x 16 products (32 x 32 bits overflow int64)
+    and a round's carries are deferred: a column stays below 2^55."""
+    n, B = spec.n, a.shape[1]
+    ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
+    an, bn = ab[:, :B], ab[:, B:]
+    aw = _words(an)
+    p = spec.column(spec.p_limbs, a.device, torch.int64)
+    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=a.device)
+    for i in range(n // 2):
+        k = 2 * i  # the limb where word i starts
+        T[k : k + n] += aw[i] * bn
+        t0 = (T[k] & WORD_MASK) + ((T[k + 1] & LIMB_MASK) << LIMB_BITS)
+        # t0 n0inv32 wraps in int64; its low 32 bits are right all the same
+        m = (t0 * spec.n0inv32) & WORD_MASK
+        T[k : k + n] += m * p
+        T[k + 1] += T[k] >> LIMB_BITS  # T_0 is now 0 mod 2^32: drop it
+        T[k + 2] += T[k + 1] >> LIMB_BITS
+        if digits is not None:
+            digits.append(m)
+    T[n - 1 : 2 * n - 1] += an[n - 1] * bn
+    m = ((T[n - 1] & LIMB_MASK) * spec.n0inv) & LIMB_MASK
+    T[n - 1 : 2 * n - 1] += m * p
+    T[n] += T[n - 1] >> LIMB_BITS
+    if digits is not None:
+        digits.append(m)
+    return _carry_out(spec, T[n:])
+
+
+def _product_words_plain(an: torch.Tensor, bn: torch.Tensor) -> torch.Tensor:
+    """[n, B] canonical limbs x2 -> the 2n canonical limbs of the full
+    product, word row by word row as the kernels' phase A forms it."""
+    n, B = an.shape
+    aw = _words(an)
+    T = torch.zeros((2 * n, B), dtype=torch.int64, device=an.device)
+    for i in range(n // 2):
+        T[2 * i : 2 * i + n] += aw[i] * bn
+    T[n - 1 : 2 * n - 1] += an[n - 1] * bn
+    carry = torch.zeros_like(T[0])
+    for k in range(2 * n):
+        v = T[k] + carry
+        T[k] = v & LIMB_MASK
+        carry = v >> LIMB_BITS
+    return T
 
 
 def tc_weights(spec: FieldSpec, rows_to: int = 1, depth_to: int = 1):
@@ -259,9 +331,9 @@ def _pieces(limbs16: torch.Tensor) -> torch.Tensor:
 
 
 def _mul_tc_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version of mont_mul_tc, in the kernel's phases: column
-    sums of A B with the low half normalized; m = (T mod R) N' mod R and
-    m p as matrix products over 8-bit pieces; one ripple. The products run
+    """The plain version of mont_mul_tc, in the kernel's phases: T = A B
+    in 32-bit words; m = (T mod R) N' mod R and m p as matrix products
+    over 8-bit pieces; one ripple. The matrix products run
     in float64, which is exact here (every sum is below 2^23) and is the
     one type torch.matmul takes on both the CPU and the card for this."""
     n, B = spec.n, a.shape[1]
@@ -279,18 +351,8 @@ def _mul_tc_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Te
 
     ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
     an, bn = ab[:, :B], ab[:, B:]
-    # phase A: 16-bit-radix column sums of A B, 2n columns
-    T = torch.zeros((2 * n, B), dtype=torch.int64, device=dev)
-    for i in range(n):
-        prod = an[i] * bn
-        T[i : i + n] += prod & LIMB_MASK
-        T[i + 1 : i + n + 1] += prod >> LIMB_BITS
-    carry = torch.zeros_like(T[0])
-    for k in range(n):  # the low half, normalized: T mod R
-        v = T[k] + carry
-        T[k] = v & LIMB_MASK
-        carry = v >> LIMB_BITS
-    T[n] += carry  # folded in once; the ripple below sees normalized lows
+    # phase A: T = A B in words; all 2n limbs canonical
+    T = _product_words_plain(an, bn)
     # phase B: m = (T mod R) N' mod R; the carry beyond n limbs is dropped
     m8 = matmul(W1, _pieces(T[:n]))
     m16 = torch.empty((n, B), dtype=torch.int64, device=dev)
@@ -367,7 +429,7 @@ class _MontMul(_KernelWrapper):
 
     def __call__(self, spec: FieldSpec, a: torch.Tensor, b: torch.Tensor):
         if not self._check(spec, a, b):
-            return _mul_plain(spec, a, b)
+            return _mul_words_plain(spec, a, b)
         a, b = a.contiguous(), b.contiguous()
         out = torch.empty_like(a)
         kernels.launch_mont_mul(self._constants(spec), a, b, out)

@@ -96,31 +96,63 @@ def build() -> dict:
             "built": True, "ptxas": "".join(logs)}
 
 
-def sass_count(mnemonic: str):
-    """How many SASS instructions of the built library start with
-    `mnemonic` (cuobjdump -sass), or None where the toolkit has no
-    cuobjdump."""
+def _kernel_name(mangled: str):
+    """`mont_mul16_kernel<25,128>` from a mangled entry name (template
+    arguments read off it), or None for another function."""
+    k = re.search(r"\d+(mont_\w+?_kernel)I((?:Li\d+E)+)E", mangled)
+    if k is None:
+        return None
+    return f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+
+
+def sass(path=None):
+    """The SASS of a built library (cuobjdump -sass; by default the
+    library of csrc/), or None where the toolkit has no cuobjdump."""
     tool = Path(_nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
-    proc = subprocess.run([str(tool), "-sass", build()["path"]],
+    proc = subprocess.run([str(tool), "-sass", str(path or build()["path"])],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed:\n{proc.stderr}")
-    return len(re.findall(rf"\b{mnemonic}[.\w]*\s", proc.stdout))
+    return proc.stdout
+
+
+def sass_count(mnemonic: str, text=None):
+    """How many SASS instructions of `text` (by default the built
+    library's) start with `mnemonic`, or None without cuobjdump."""
+    text = sass() if text is None else text
+    if text is None:
+        return None
+    return len(re.findall(rf"\b{re.escape(mnemonic)}[.\w]*\s", text))
+
+
+def sass_histogram(text: str) -> dict:
+    """{kernel: {"instructions": n, "top": [(mnemonic, count), ...]}} for
+    the mont_* kernels in a SASS dump, kernels named as by ptxas_report."""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,6}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)?)", ln)
+        if m and name:
+            out.setdefault(name, {})
+            out[name][m.group(1)] = out[name].get(m.group(1), 0) + 1
+    return {k: {"instructions": sum(h.values()),
+                "top": sorted(h.items(), key=lambda kv: -kv[1])[:8]}
+            for k, h in out.items()}
 
 
 def ptxas_report(text: str) -> dict:
     """`ptxas -v` output -> {kernel: {"registers", "spill_stores",
-    "spill_loads", "smem"}}, the kernel named as `mont_mul_kernel<25,128>`
-    (template arguments read off the mangled name)."""
+    "spill_loads", "smem"}}, the kernel named as `mont_mul16_kernel<25,128>`."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"\d+(mont_\w+?_kernel)I((?:Li\d+E)+)E", m.group(1))
-            name = (f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
-                    if k else m.group(1))
+            name = _kernel_name(m.group(1)) or m.group(1)
             out[name] = {}
         elif name and "spill stores" in ln:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
@@ -132,44 +164,89 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
+def use_library(path=None) -> ctypes.CDLL:
+    """Load the kernel library at `path` and make it the one the launch
+    functions call (scripts/prof_variants.py times variants so); None
+    builds and loads the library of csrc/."""
+    global _lib
+    _lib = None
+    if path is not None:
+        _lib = _bind(ctypes.CDLL(str(path)))
+    return library()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build()["path"])
-        ptr = ctypes.c_void_p
-        u32p = ctypes.POINTER(ctypes.c_uint32)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        consts = [ctypes.c_int, u32p, i32p, ctypes.c_uint32]
-        lib.celo_mont_mul.argtypes = [*consts, ptr, ptr, ptr, ctypes.c_int64, ptr]
-        lib.celo_mont_mul_shape.argtypes = [
-            *consts, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr,
-        ]
-        lib.celo_mont_mul_tc.argtypes = [
-            *consts, ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr,
-        ]
-        lib.celo_mont_redc.argtypes = [*consts, ptr, ptr, ctypes.c_int64, ptr]
-        for fn in (lib.celo_mont_mul, lib.celo_mont_mul_shape,
-                   lib.celo_mont_mul_tc, lib.celo_mont_redc):
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = _bind(ctypes.CDLL(build()["path"]))
     return _lib
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface's argument and result types."""
+    ptr = ctypes.c_void_p
+    consts = [ctypes.c_int, ctypes.POINTER(FieldConsts)]
+    lib.celo_mont_mul.argtypes = [*consts, ptr, ptr, ptr, ctypes.c_int64, ptr]
+    lib.celo_mont_mul_shape.argtypes = [
+        *consts, ptr, ptr, ptr, ctypes.c_int64, ctypes.c_int, ptr,
+    ]
+    lib.celo_mont_mul_tc.argtypes = [
+        *consts, ptr, ptr, ptr, ctypes.c_int64, ptr, ptr, ptr,
+    ]
+    lib.celo_mont_redc.argtypes = [*consts, ptr, ptr, ctypes.c_int64, ptr]
+    lib.celo_mont_mul_tc_occupancy.argtypes = [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ]
+    for fn in (lib.celo_mont_mul, lib.celo_mont_mul_shape,
+               lib.celo_mont_mul_tc, lib.celo_mont_redc,
+               lib.celo_mont_mul_tc_occupancy):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+MAX_LIMBS = 49  # kMaxLimbs of csrc/field_common.cuh
+MAX_WORDS = (MAX_LIMBS + 1) // 2
+
+
+class FieldConsts(ctypes.Structure):
+    """celo::FieldConsts of csrc/field_common.cuh, field for field."""
+
+    _fields_ = [
+        ("p", ctypes.c_uint32 * MAX_LIMBS),
+        ("offset", ctypes.c_int32 * MAX_LIMBS),
+        ("pw", ctypes.c_uint32 * MAX_WORDS),
+        ("n0inv", ctypes.c_uint32),
+        ("n0inv32", ctypes.c_uint32),
+    ]
+
+
 class FieldConstants:
-    """A field's constants as the C interface takes them (host arrays)."""
+    """A field's constants as the C interface takes them: the limb count
+    and a host FieldConsts, with p also in 32-bit words (the top word 0:
+    the guard limb) and n0inv32 = -p^-1 mod 2^32 for the word-form
+    multiplies."""
 
     def __init__(self, spec):
-        self.n = spec.n
-        self.p = (ctypes.c_uint32 * spec.n)(*[int(x) for x in spec.p_limbs])
-        self.offset = (ctypes.c_int32 * spec.n)(
-            *[int(x) for x in spec.offset_limbs]
-        )
-        self.n0inv = ctypes.c_uint32(int(spec.n0inv))
+        n, words = spec.n, spec.p_words
+        if n % 2 == 0 or n > MAX_LIMBS or int(words[-1]) != 0:
+            raise ValueError(
+                f"{spec.name}: the kernels take an odd limb count up to "
+                f"{MAX_LIMBS} and a modulus below 2^(16 (n - 1))"
+            )
+        self.n = n
+        c = self.consts = FieldConsts()
+        for k in range(n):
+            c.p[k] = int(spec.p_limbs[k])
+            c.offset[k] = int(spec.offset_limbs[k])
+        for j, w in enumerate(words):
+            c.pw[j] = int(w)
+        c.n0inv = int(spec.n0inv)
+        c.n0inv32 = int(spec.n0inv32)
 
     @property
     def args(self):
-        return self.n, self.p, self.offset, self.n0inv
+        return self.n, ctypes.byref(self.consts)
 
 
 def _check(err: int, name: str):
@@ -195,7 +272,8 @@ def launch_mont_mul(consts: FieldConstants, a, b, out):
 
 
 def launch_mont_mul_shape(consts: FieldConstants, a, b, out, threads: int):
-    """mont_mul at n = 25 with `threads` threads a block (SHAPE_THREADS)."""
+    """The 16-bit-radix multiply at n = 25 with `threads` threads a block
+    (SHAPE_THREADS)."""
     err = library().celo_mont_mul_shape(
         *consts.args, _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(a.shape[1]),
         ctypes.c_int(threads), _stream(a),
@@ -211,6 +289,17 @@ def launch_mont_mul_tc(consts: FieldConstants, a, b, out, w1, w2):
         _ptr(w1), _ptr(w2), _stream(a),
     )
     _check(err, "mont_mul_tc")
+
+
+def tc_occupancy(n: int) -> dict:
+    """What the CUDA runtime reports for mont_mul_tc at n limbs on the
+    current card: {"blocks_per_sm", "smem_bytes"} (blocks of 128 threads
+    that share an SM; a block's dynamic shared memory)."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = library().celo_mont_mul_tc_occupancy(
+        ctypes.c_int(n), ctypes.byref(blocks), ctypes.byref(smem))
+    _check(err, f"mont_mul_tc_occupancy[{n}]")
+    return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
 
 
 def launch_mont_redc(consts: FieldConstants, x, out):

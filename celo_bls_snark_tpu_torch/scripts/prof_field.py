@@ -1,9 +1,10 @@
-"""Launch-shape sweep of the Montgomery multiply on the card: mont_mul at
-n = 25 (fq377) compiled for and launched with 32, 64, 128, 256 and 512
-threads a block (the counterpart of the block-width sweep of the JAX
-package's scripts/prof_field.py).
+"""Launch-shape sweep of the Montgomery multiply on the card: the
+16-bit-radix multiply at n = 25 (fq377) compiled for and launched with 32,
+64, 128, 256 and 512 threads a block (the counterpart of the block-width
+sweep of the JAX package's scripts/prof_field.py), and beside those five
+rows mont_mul itself, the 32-bit-word kernel the paths use.
 
-Per shape it prints ns per multiply per lane over an 8-deep dependent chain
+Per row it prints ns per multiply per lane over an 8-deep dependent chain
 at B = 2^16 lanes, and the registers per thread and spill bytes ptxas
 reported for that instantiation. The chains are replayed from a CUDA graph,
 so the time is the card's (issued eagerly from Python a launch costs more
@@ -44,26 +45,30 @@ def _chain(mul, a, b):
 
 
 def sweep(B=1 << 16, threads=kernels.SHAPE_THREADS, iters=20, device="cuda"):
-    """One row per block size: {"threads", "us_per_call", "ns_per_mul_lane",
-    "eager_us_per_call", "registers", "spill_stores", "spill_loads",
-    "equal"}."""
+    """One row per block size of the 16-bit-radix kernel and a last row for
+    mont_mul ("threads": null, it picks its own): {"kernel", "threads",
+    "us_per_call", "ns_per_mul_lane", "eager_us_per_call", "registers",
+    "spill_stores", "spill_loads", "equal"}."""
     device = require_device(device)
     spec = F.FQ
     a, b = _inputs(spec, B, device)
     want = _chain(lambda x, y: F.mont_mul(spec, x, y), a, b)
     on_card = device.type == "cuda"
     regs = kernels.ptxas_report(kernels.build()["ptxas"]) if on_card else {}
+    cases = [(f"mont_mul16_kernel<25,{th}>", th,
+              lambda x, y, th=th: F.mont_mul_shape(spec, x, y, th))
+             for th in threads]
+    cases.append(("mont_mul_kernel<25>", None, lambda x, y: F.mont_mul(spec, x, y)))
     rows = []
-    for th in threads:
-        mul = lambda x, y, th=th: F.mont_mul_shape(spec, x, y, th)  # noqa: E731
+    for kernel, th, mul in cases:
         got = _chain(mul, a, b)
-        row = {"threads": th, "equal": bool(torch.equal(got, want))}
+        row = {"kernel": kernel, "threads": th, "equal": bool(torch.equal(got, want))}
         if on_card:
             us = time_ms(lambda: _chain(mul, a, b), iters, graph=True) * 1e3 / CHAIN
             eager = time_ms(lambda: _chain(mul, a, b), iters) * 1e3 / CHAIN
             row.update(us_per_call=us, ns_per_mul_lane=us * 1e3 / B,
                        eager_us_per_call=eager)
-        row.update(regs.get(f"mont_mul_kernel<25,{th}>", {}))
+        row.update(regs.get(kernel, {}))
         rows.append(row)
     return rows
 
@@ -74,7 +79,7 @@ def main():
     for row in sweep(B, threads):
         print(json.dumps({"B": B, **row}), flush=True)
         if not row["equal"]:
-            sys.exit(f"threads={row['threads']}: output differs from mont_mul")
+            sys.exit(f"{row['kernel']}: output differs from mont_mul")
 
 
 if __name__ == "__main__":

@@ -7,14 +7,18 @@ Phases (each prints one line or more; any failure exits non-zero):
      versions, and the build of csrc/*.cu with nvcc for sm_90a (registers
      and spills per kernel from ptxas);
   2. kernels, exactly against their plain PyTorch versions on the card, on
-     random lazy inputs in (-200p, 200p) with signed limbs, at n = 17, 25,
-     49 and B in {1, 127, 128, 4099, 2^20}: mont_mul, mont_redc, and
+     random lazy inputs in (-256p, 256p) with signed limbs (the first lanes
+     hold 0, 1, p - 1, the budget's ends +-255p and values whose top limb
+     is nonzero), at n = 17, 25, 49 and B in {1, 127, 128, 4099, 2^20}:
+     mont_mul (32-bit words; also against the 16-bit-radix plain version
+     and, at n = 25, against the 16-bit-radix kernel), mont_redc, and
      mont_mul_tc (also exactly against mont_mul); mont_mul_shape at each
      block size. Then, again exactly against the plain version, each
      kernel's time, bound and plain-version time at the widths the paths
      launch, printed at the end as one `kernels` line (`ms` is the card's
      time per launch, from a replayed CUDA graph of the launches;
-     `eager_ms` the time per call issued from Python);
+     `eager_ms` the time per call issued from Python); the 16-bit-radix
+     kernel is timed beside mont_mul at the same widths;
   3. entry(): the 8-message, 4-validator verification is True on the
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
@@ -33,10 +37,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      2^20 BW6-761 points against one host scalar multiplication, the
      h-polynomial at d = 2^20 against host evaluations at random points and
      at d = 2^12 against the host fft pipeline, an ntt_fr round trip at
-     2^20; per stage the seconds, launches and peak memory; one profiled
-     MSM for the card's busy share;
+     2^20; per stage the seconds, launches and peak memory;
   7. the same MSM and h-polynomial under mul_kernel("tc"): the same point
-     and the same limbs, every multiply through mont_mul_tc;
+     and the same limbs, every multiply through mont_mul_tc; then one
+     profiled MSM (under mont_mul) for the card's busy share;
   8. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of the JAX package, and exits non-zero without
@@ -52,7 +56,12 @@ import time
 import torch
 
 
+T_START = time.perf_counter()
+
+
 def line(obj):
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -105,73 +114,97 @@ KERNEL_INFO = {
 }
 NO_LIBRARY = ("no PyTorch call computes a multi-precision Montgomery "
               "product or reduction")
-PLAIN = {"mont_mul": F._mul_plain, "mont_redc": F._redc_plain,
+PLAIN = {"mont_mul": F._mul_words_plain, "mont_redc": F._redc_plain,
          "mont_mul_tc": F._mul_tc_plain, "mont_mul_shape": F._mul_plain}
 # (n, B) timed per kernel: the widths the paths launch. Verification: the
 # fold's complete adds (6 x 2048 lanes), to_affine's inversion and the
 # Miller loop's infinity tests (2), the pairing's Fq12 products at batch 2
 # (54 x 2), f12_is_one (12 x 1). Prover: the NTT stages (n = 25 and 17 at
-# 2^19), pointwise products and to_raw (2^20), the Pippenger madd's two
-# stacked layers (5 and 6 x 2^15 lanes at n = 49), the batch inversion's
-# products and zero test (n = 49 at 2^20)
+# 2^19), pointwise products and to_raw (2^20), the Pippenger suffix rounds
+# (2^15 lanes at n = 49) and the madd's two stacked layers (5 and 6 x 2^15),
+# the batch inversion's products and zero test (n = 49 at 2^20)
 L_MSM = 1 << 15
 TIMED = {
-    "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 19), (25, 1 << 20),
-                 (17, 1 << 19), (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
+    "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 16), (25, 1 << 19),
+                 (25, 1 << 20), (17, 1 << 19), (49, L_MSM), (49, 5 * L_MSM),
+                 (49, 6 * L_MSM), (49, 1 << 20)],
     "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (49, 1 << 20)],
-    "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19),
+    "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19), (49, L_MSM),
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
 MAIN_WIDTH = {"mont_mul": (25, 12288), "mont_redc": (25, 2),
               "mont_mul_tc": (49, 6 * L_MSM)}
 SHAPE_B = 1 << 16  # the launch-shape sweep's width, n = 25
+# widths at which the 16-bit-radix kernel (128 threads a block) is timed
+# beside mont_mul, n = 25
+OLD_DESIGN_B = [12288, 1 << 16, 1 << 20]
 
 
 def bound(name, n, B):
     """(bound_ms, bound_by) for one launch over B lanes: the larger of
     bytes / HBM rate (inputs read once, output written once) and
-    operations / peak rate. Per lane a 16-bit-radix CIOS needs 2 n^2
-    multiplies (a_i b_j and m_i p_j) and about 4 n^2 adds, shifts and masks
-    to accumulate their halves: 6 n^2 32-bit integer operations for
-    mont_mul, half of that for mont_redc, at the FP32 lane-instruction rate
-    (a ceiling on the integer rate). mont_mul_tc keeps one of the two
-    products on the CUDA cores (3 n^2) and does 2 (2n 2n + 4n 2n) = 24 n^2
-    8-bit operations on the tensor cores; its operations time is the larger
-    of the two."""
+    operations / peak rate, whatever implements the work. The card
+    multiplies 32 x 32 bits, so per lane a Montgomery multiply is
+    2 W^2 word products, W = ceil(n / 2) (A B and m p), each a low and a
+    high half: 4 W^2 32-bit multiply instructions for mont_mul (and for the
+    16-bit-radix kernel behind mont_mul_shape, which is held to the same
+    work), half of that for mont_redc, at the FP32 lane-instruction rate (a
+    ceiling on the integer rate). mont_mul_tc keeps one of the two products
+    on the CUDA cores (2 W^2) and does 2 (2n 2n + 4n 2n) = 24 n^2 8-bit
+    operations on the tensor cores; its operations time is the larger of
+    the two."""
+    W = (n + 1) // 2
     if name == "mont_redc":
-        nbytes, t_ops = 8 * n * B, 3 * n * n * B / LANE_OPS_PER_S
+        nbytes, t_ops = 8 * n * B, 2 * W * W * B / LANE_OPS_PER_S
     elif name == "mont_mul_tc":
         nbytes = 12 * n * B
-        t_ops = max(3 * n * n * B / LANE_OPS_PER_S,
+        t_ops = max(2 * W * W * B / LANE_OPS_PER_S,
                     24 * n * n * B / TENSOR_INT8_OPS_PER_S)
     else:
-        nbytes, t_ops = 12 * n * B, 6 * n * n * B / LANE_OPS_PER_S
+        nbytes, t_ops = 12 * n * B, 4 * W * W * B / LANE_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+N_EDGE = 9  # the edge lanes of lazy_batch
+
+
 def lazy_batch(spec, B, gen):
     """Random lazy [n, B] int32 limbs on the card: a value v0 < 2^(16(n-2))
-    < p plus s p with s in [-199, 199], its limbs then re-split with random
-    signed carries (value kept); lanes 0..2 hold 0, 1 and p-1 when B > 3."""
-    n = spec.n
+    < p plus s p with s in [-255, 255], its limbs then re-split with random
+    signed carries (value kept). When B > N_EDGE the first lanes hold the
+    edges: 0, 1 and p - 1 as canonical limbs; v0 + 255p and v0 - 255p (the
+    budget's ends) with signed carries; 255p + 1 and 256p - 1 as canonical
+    limbs, whose top limb is nonzero, and their negatives with a negative
+    top limb."""
+    n, p = spec.n, spec.modulus
     lo = torch.randint(0, 1 << 16, (n, B), generator=gen, device=DEV)
     lo[n - 2:] = 0
-    s = torch.randint(-199, 200, (1, B), generator=gen, device=DEV)
+    s = torch.randint(-255, 256, (1, B), generator=gen, device=DEV)
+    if B > N_EDGE:
+        s[0, 3], s[0, 4] = 255, -255
     limbs = lo + s * spec.column(spec.p_limbs, DEV, torch.int64)
     d = torch.randint(-512, 512, (n - 1, B), generator=gen, device=DEV)
     limbs[:-1] += d << 16
     limbs[1:] -= d
-    if B > 3:
-        limbs[:, 0] = 0
-        limbs[:, 1] = torch.as_tensor(F.int_to_limbs(1, n), device=DEV)
-        limbs[:, 2] = torch.as_tensor(F.int_to_limbs(spec.modulus - 1, n), device=DEV)
+    if B > N_EDGE:
+        top = [255 * p + 1, 256 * p - 1]
+        assert all(v >> (16 * (n - 1)) for v in top)
+        neg = [F.int_to_limbs((-v) % (1 << (16 * n)), n).astype("int64") for v in top]
+        for v in neg:
+            v[n - 1] -= 1 << 16  # two's complement: the top limb carries the sign
+        cols = [F.int_to_limbs(v, n) for v in (0, 1, p - 1)]
+        cols = {0: cols[0], 1: cols[1], 2: cols[2],
+                5: F.int_to_limbs(top[0], n), 6: F.int_to_limbs(top[1], n),
+                7: neg[0], 8: neg[1]}
+        for lane, col in cols.items():
+            limbs[:, lane] = torch.as_tensor(col, device=DEV)
     assert int(limbs.abs().max()) < (1 << 26)
     return limbs.to(torch.int32).contiguous()
 
 
-def check_model(spec, a, b, out, lanes=16):
+def check_model(spec, a, b, out, lanes=24):
     """Python-int model on the first lanes: mul -> (A B + m p) / R and
     redc -> (X + m p) / R, A = a + 256p; canonical limbs, value < 2p."""
     n, p = spec.n, spec.modulus
@@ -199,16 +232,35 @@ def phase_device():
     print(smi.stdout.strip(), flush=True)
     info = kernels.build()
     regs = kernels.ptxas_report(info["ptxas"])
-    imma = kernels.sass_count("IMMA")  # the integer tensor-core instruction
+    sass = kernels.sass()
+    imma = kernels.sass_count("IMMA", sass)  # the integer tensor-core instruction
     if imma == 0:
         fail("the built library holds no IMMA instruction: mont_mul_tc "
              "does not reach the tensor cores")
+    # the 32 x 32 -> 64 multiply-add with carry in and out
+    wide = kernels.sass_count("IMAD.WIDE.U32.X", sass)
+    if wide == 0:
+        fail("the built library holds no IMAD.WIDE.U32.X instruction: the "
+             "multiplies do not run as carry chains of 32-bit words")
+    spilled = {k: v for k, v in regs.items()
+               if v.get("spill_stores") or v.get("spill_loads")}
+    if spilled:
+        fail(f"ptxas reports register spills: {spilled}")
+    occupancy = {n: kernels.tc_occupancy(n) for n in SPECS}
+    if occupancy[49]["blocks_per_sm"] < 2:
+        fail(f"mont_mul_tc<49> runs one block an SM: {occupancy[49]}")
     line({"phase": "device", "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0],
           "build_s": info["seconds"], "built": info["built"],
           "library": info["path"], "sources": [f.name for f in kernels.sources()],
           "sass_imma_instructions": "not measured" if imma is None else imma,
+          "sass_imad_wide_u32_x_instructions":
+              "not measured" if wide is None else wide,
+          "sass_instructions": {
+              k: v["instructions"]
+              for k, v in (kernels.sass_histogram(sass) if sass else {}).items()},
+          "mont_mul_tc_occupancy": occupancy,
           "ptxas": regs})
     return smi.stdout.strip()
 
@@ -233,7 +285,9 @@ def phase_kernels():
         for B in WIDTHS:
             a, b = lazy_batch(spec, B, gen), lazy_batch(spec, B, gen)
             got = F.mont_mul(spec, a, b)
-            hold("mont_mul", f"n={n} B={B}", got, F._mul_plain(spec, a, b))
+            hold("mont_mul", f"n={n} B={B}", got, F._mul_words_plain(spec, a, b))
+            hold("mont_mul", f"n={n} B={B} against the 16-bit-radix plain version",
+                 got, F._mul_plain(spec, a, b))
             got_r = F.mont_redc(spec, a)
             hold("mont_redc", f"n={n} B={B}", got_r, F._redc_plain(spec, a))
             got_tc = F.mont_mul_tc(spec, a, b)
@@ -241,8 +295,11 @@ def phase_kernels():
             hold("mont_mul_tc", f"n={n} B={B} against mont_mul", got_tc, got)
             if n == 25:
                 for th in kernels.SHAPE_THREADS:
+                    got_16 = F.mont_mul_shape(spec, a, b, th)
                     hold("mont_mul_shape", f"threads={th} B={B}",
-                         F.mont_mul_shape(spec, a, b, th), F._mul_plain(spec, a, b))
+                         got_16, F._mul_plain(spec, a, b))
+                    hold("mont_mul", f"B={B} against the 16-bit-radix kernel "
+                         f"({th} threads)", got, got_16)
             if B == 127:
                 check_model(spec, a, b, got)
                 check_model(spec, a, b, got_tc)
@@ -275,13 +332,15 @@ def phase_kernels():
             rows[name].append(timed_row(
                 name, spec, B, lambda: kern(spec, *args),
                 lambda: PLAIN[name](spec, *args)))
-    a, b = lazy_batch(F.FQ, SHAPE_B, gen), lazy_batch(F.FQ, SHAPE_B, gen)
-    rows["mont_mul_shape"] = [
-        timed_row("mont_mul_shape", F.FQ, SHAPE_B,
-                  lambda th=th: F.mont_mul_shape(F.FQ, a, b, th),
-                  lambda: F._mul_plain(F.FQ, a, b), extra={"threads": th}.items())
-        for th in kernels.SHAPE_THREADS
-    ]
+    rows["mont_mul_shape"] = []
+    for B in OLD_DESIGN_B:
+        a, b = lazy_batch(F.FQ, B, gen), lazy_batch(F.FQ, B, gen)
+        rows["mont_mul_shape"] += [
+            timed_row("mont_mul_shape", F.FQ, B,
+                      lambda th=th: F.mont_mul_shape(F.FQ, a, b, th),
+                      lambda: F._mul_plain(F.FQ, a, b), extra={"threads": th}.items())
+            for th in (kernels.SHAPE_THREADS if B == SHAPE_B else (128,))
+        ]
     return rows, worst
 
 
@@ -473,8 +532,6 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
             add_launches(cios, res.get("launches", {}))
         if cios["mont_mul"] <= 0 or cios["mont_redc"] <= 0 or cios["mont_mul_tc"]:
             fail(f"prover path: unexpected launch counts {cios}")
-        rnd = random.Random(seed + 5)
-        line(msm_profile(accel, bases, [rnd.randrange(engine.fr) for _ in range(B)]))
     tc = {}
     with F.mul_kernel("tc"):
         point_tc, res = prover.msm_stage(accel, engine, bases, ks, seed + 1)
@@ -488,6 +545,12 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
             fail("prover path (tc): the h-polynomial's limbs differ")
         if tc["mont_mul_tc"] <= 0 or tc["mont_mul"] != 0:
             fail(f"prover path (tc): not every multiply went through mont_mul_tc: {tc}")
+    # the profiled MSM comes last: it is there for the card's busy share
+    # alone, and both multiplies' stages are timed before a profiler has
+    # traced an MSM
+    with F.mul_kernel("cios"):
+        rnd = random.Random(seed + 5)
+        line(msm_profile(accel, bases, [rnd.randrange(engine.fr) for _ in range(B)]))
     line({"phase": "prover_path", "msm_points": B, "h_domain": d,
           "launches_cios": cios, "launches_tc": tc,
           "msm_equal_host": True, "tc_equal_cios": True})
@@ -495,7 +558,6 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
 
 
 def main():
-    t_start = time.perf_counter()
     smi = phase_device()
     rows, worst = phase_kernels()
     phase_entry()
@@ -504,7 +566,8 @@ def main():
     out = []
     for name, per_width in rows.items():
         if name == "mont_mul_shape":
-            main_row = next(r for r in per_width if r["threads"] == 128)
+            main_row = next(r for r in per_width
+                            if (r["B"], r["threads"]) == (SHAPE_B, 128))
         else:
             main_row = next(r for r in per_width
                             if (r["n"], r["B"]) == MAIN_WIDTH[name])
@@ -522,7 +585,7 @@ def main():
             "card": smi,
         })
     line({"kernels": out})
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s",
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - T_START:.1f} s",
           flush=True)
     line({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

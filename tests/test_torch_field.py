@@ -13,9 +13,20 @@ The tensor-core multiply's plain version (_mul_tc_plain) is held limb for
 limb against mul_conv at every width, and against the Pallas kernel it
 ports (_make_pallas_mul_mxu, jitted in interpret mode) at n = 17 and 25.
 At n = 49 the interpreted Pallas kernel does not compile within minutes on
-the CPU, so there the comparison is against mul_conv alone."""
+the CPU, so there the comparison is against mul_conv alone.
 
+mont_mul's plain version (_mul_words_plain) runs the kernel's mixed-radix
+rounds (32-bit digits, one last 16-bit digit); it is held limb for limb
+against mul_conv and the 16-bit-radix plain version, its digits against
+m = -A B p^-1 mod R, and the ranges the kernel's word arithmetic relies on
+against Python integers. Where the machine has g++, the CUDA sources' word
+arithmetic itself (csrc/field_common.cuh, which also compiles for the host)
+is run on the same inputs."""
+
+import ctypes
 import random
+import shutil
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +36,7 @@ import torch
 
 from celo_bls_snark_tpu.ops import field as jf
 from celo_bls_snark_tpu_torch.ops import field as tf
+from celo_bls_snark_tpu_torch.ops import kernels as tk
 
 # one thread: the plain versions loop over small tensors, and the test
 # suite's parallel workers would otherwise contend for every core
@@ -293,6 +305,208 @@ def test_mont_mul_shape_routes_and_validates():
         tf.mont_mul_shape(tf.FR, x, x, 128)
 
 
+def edge_inputs(spec, rng, B=40):
+    """Lazy limbs (signed carries) of a pair of value lists that stress the
+    mixed radix: 0, 1, p - 1, the budget's ends +-255p and +-(256p - 1),
+    values whose canonical top limb is nonzero, then random values."""
+    p = spec.modulus
+    edge = [0, 1, p - 1, 255 * p, -255 * p, 256 * p - 1, -(256 * p - 1),
+            200 * p + 1, p, -p]
+    va = edge + [rng.randrange(-256 * p + 1, 256 * p) for _ in range(B - len(edge))]
+    vb = edge[::-1] + [rng.randrange(-256 * p + 1, 256 * p) for _ in range(B - len(edge))]
+    return va, vb, lazy_limbs(spec.n, va, rng), lazy_limbs(spec.n, vb, rng)
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_mul_words_plain_limb_exact(js, ts, jops, tops):
+    """mont_mul's plain version against mul_conv on JAX-CPU, against the
+    16-bit-radix plain version and against the integer model."""
+    rng = random.Random(15)
+    va, vb, a, b = edge_inputs(js, rng)
+    got = tf._mul_words_plain(ts, t(a), t(b)).numpy()
+    np.testing.assert_array_equal(
+        got, np.asarray(jops.mul_conv(jnp.asarray(a), jnp.asarray(b))))
+    np.testing.assert_array_equal(got, tf._mul_plain(ts, t(a), t(b)).numpy())
+    np.testing.assert_array_equal(got, tf.mont_mul(ts, t(a), t(b)).numpy())
+    p, R = js.modulus, 1 << (16 * js.n)
+    for j, (x, y) in enumerate(zip(va, vb)):
+        X = (x + 256 * p) * (y + 256 * p)
+        want = (X + ((-X * pow(p, -1, R)) % R) * p) // R
+        assert tf.limbs_to_int(got[:, j]) == want < 2 * p
+    assert got.min() >= 0 and got.max() < 1 << 16
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_mixed_radix_digits_concatenate_to_m(js, ts, jops, tops):
+    """n // 2 digits of 32 bits and one of 16: together m = -A B p^-1 mod
+    R, the same m as a 16-bit-radix reduction computes."""
+    rng = random.Random(16)
+    va, vb, a, b = edge_inputs(js, rng)
+    digits = []
+    tf._mul_words_plain(ts, t(a), t(b), digits)
+    assert len(digits) == ts.n // 2 + 1 == ts.n_words
+    p, R = js.modulus, 1 << (16 * js.n)
+    for j, (x, y) in enumerate(zip(va, vb)):
+        m = sum(int(d[j]) << (32 * i) for i, d in enumerate(digits))
+        assert int(digits[-1][j]) < 1 << 16
+        assert m == (-(x + 256 * p) * (y + 256 * p) * pow(p, -1, R)) % R
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_word_constants_against_python_integers(js, ts, jops, tops):
+    p, n = ts.modulus, ts.n
+    assert n % 2 == 1 and ts.n_words == (n + 1) // 2
+    assert (ts.n0inv32 * p + 1) % (1 << 32) == 0 and 0 < ts.n0inv32 < 1 << 32
+    assert ts.n0inv32 & 0xFFFF == ts.n0inv
+    assert sum(int(w) << (32 * j) for j, w in enumerate(ts.p_words)) == p
+    assert int(ts.p_words[-1]) == 0  # the guard limb: p has W - 1 words
+    c = tk.FieldConstants(ts)
+    assert c.args[0] == n
+    assert ctypes.sizeof(tk.FieldConsts) == 4 * (49 + 49 + 25 + 2)
+    assert list(c.consts.p)[:n] == [int(x) for x in ts.p_limbs]
+    assert list(c.consts.offset)[:n] == [int(x) for x in ts.offset_limbs]
+    assert list(c.consts.pw)[: ts.n_words] == [int(w) for w in ts.p_words]
+    assert not any(list(c.consts.p)[n:]) and not any(list(c.consts.pw)[ts.n_words:])
+    assert (c.consts.n0inv, c.consts.n0inv32) == (ts.n0inv, ts.n0inv32)
+
+
+def word_rounds(spec, A, Bv):
+    """The kernel's rounds on Python integers: per round the sum before
+    the shift and t after it; then the last round's sum and the result."""
+    p, W = spec.modulus, spec.n_words
+    t, trace = 0, []
+    for i in range(W - 1):
+        s = t + ((A >> (32 * i)) & 0xFFFFFFFF) * Bv
+        s += ((s * spec.n0inv32) & 0xFFFFFFFF) * p
+        assert s % (1 << 32) == 0
+        t = s >> 32
+        trace.append((s, t))
+    s = t + (A >> (32 * (W - 1))) * Bv
+    s += ((s * spec.n0inv) & 0xFFFF) * p
+    assert s % (1 << 16) == 0
+    return trace, s, s >> 16
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_word_rounds_stay_in_range(js, ts, jops, tops):
+    """What the kernel's registers rely on: with A, B < 512p the running
+    sum t fits W words between rounds (t < 514p, no carry word), a round's
+    sum fits W + 1 words, the last round's sum fits W words, A's top word is
+    a half word, and the result is below 2p."""
+    rng = random.Random(17)
+    p, W, R = ts.modulus, ts.n_words, 1 << (16 * ts.n)
+    top = 512 * p - 1
+    assert top < R and top >> (32 * (W - 1)) < 1 << 16
+    assert 514 * p < 1 << (32 * W - 23) and (1 << 18) * p < R
+    ones = (1 << (top.bit_length() - 1)) - 1  # all words 0xFFFFFFFF below the top
+    ends = [1, top, ones, 256 * p, p + 256 * p - 1]
+    pairs = [(x, y) for x in ends for y in ends]
+    pairs += [(rng.randrange(1, top + 1), rng.randrange(1, top + 1)) for _ in range(200)]
+    for A, Bv in pairs:
+        trace, last, out = word_rounds(ts, A, Bv)
+        for s, tt in trace:
+            assert s < 1 << (32 * (W + 1)) and tt < 514 * p < 1 << (32 * W)
+        assert last < 1 << (32 * W)
+        assert out < 2 * p and out == (A * Bv + ((-A * Bv * pow(p, -1, R)) % R) * p) // R
+
+
+@pytest.fixture(scope="module")
+def host_check(tmp_path_factory):
+    """csrc/host_check.cpp built with g++: the CUDA sources' word
+    arithmetic, compiled for the host."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to build the host check of the word arithmetic")
+    exe = tmp_path_factory.mktemp("host_check") / "host_check"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-o", str(exe),
+                    str(tk.CSRC / "host_check.cpp")], check=True)
+    return exe
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_cuda_word_arithmetic_on_the_host(js, ts, jops, tops, host_check):
+    """load_words, the mixed-radix rounds and the full word product of
+    csrc/field_common.cuh, run on the host: the product's limbs equal
+    mul_conv's, the digits equal the plain version's, the full product
+    equals Python's."""
+    rng = random.Random(18)
+    va, vb, a, b = edge_inputs(js, rng, 24)
+    n, B, p = ts.n, len(va), ts.modulus
+    fields = [n, B, ts.n0inv, ts.n0inv32, *ts.p_limbs, *ts.offset_limbs,
+              *ts.p_words, *a.reshape(-1), *b.reshape(-1)]
+    run = subprocess.run([str(host_check)], input=" ".join(str(int(x)) for x in fields),
+                         capture_output=True, text=True, check=True)
+    rows = np.array([[int(x) for x in ln.split()] for ln in run.stdout.splitlines()],
+                    dtype=np.int64)
+    assert rows.shape == (B, n + ts.n_words + 2 * n)
+    want = np.asarray(jops.mul_conv(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(rows[:, :n].T, want)
+    digits = []
+    tf._mul_words_plain(ts, t(a), t(b), digits)
+    np.testing.assert_array_equal(rows[:, n : n + ts.n_words].T,
+                                  torch.stack(digits).numpy())
+    for j, (x, y) in enumerate(zip(va, vb)):
+        assert tf.limbs_to_int(rows[j, n + ts.n_words :]) == (x + 256 * p) * (y + 256 * p)
+
+
+def test_prof_field_sweep_rows_on_cpu():
+    """The launch-shape sweep's rows without a card: five block sizes of
+    the 16-bit-radix kernel and mont_mul beside them, all the same limbs."""
+    from celo_bls_snark_tpu_torch.scripts import prof_field
+
+    rows = prof_field.sweep(B=8, device="cpu")
+    assert [r["threads"] for r in rows] == [32, 64, 128, 256, 512, None]
+    assert rows[-1]["kernel"] == "mont_mul_kernel<25>"
+    assert all(r["kernel"] == f"mont_mul16_kernel<25,{r['threads']}>" for r in rows[:-1])
+    assert all(r["equal"] for r in rows)
+
+
+def test_prof_variants_edits_still_apply():
+    """Every variant of scripts/prof_variants.py is a textual edit of
+    csrc/: each must still find its place in the sources."""
+    from celo_bls_snark_tpu_torch.scripts import prof_variants
+
+    assert "shipped" in prof_variants.VARIANTS
+    for name, (edits, which, _) in prof_variants.VARIANTS.items():
+        assert set(which) <= {"mul", "tc"}
+        for fname, edit in edits.items():
+            text = (tk.CSRC / fname).read_text()
+            assert edit(text) != text, name
+
+
+def test_compiler_report_parsers():
+    ptxas = (
+        "ptxas info    : Compiling entry function "
+        "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab15mont_mul_kernelILi49EEEvPKiS2_PilN4celo11FieldConstsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN40_X\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab17mont_mul16_kernelILi25ELi128EEEvPKiS2_PilN4celo11FieldConstsE' for 'sm_90a'\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 0 barriers, 16 bytes smem\n"
+    )
+    rep = tk.ptxas_report(ptxas)
+    assert rep["mont_mul_kernel<49>"] == {
+        "spill_stores": 0, "spill_loads": 0, "registers": 128, "smem": 0}
+    assert rep["mont_mul16_kernel<25,128>"] == {
+        "spill_stores": 8, "spill_loads": 12, "registers": 96, "smem": 16}
+    sass = (
+        "\t\tFunction : _ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab15mont_mul_kernelILi49EEEvPKiS2_PilN4celo11FieldConstsE\n"
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
+        "        /*0010*/                   IMAD.WIDE.U32 R6, P0, R21, R18, R6 ;\n"
+        "        /*0020*/                   IMAD.WIDE.U32.X R8, P0, R19, R18, R8, P0 ;\n"
+        "        /*0030*/              @P0  IADD3.X R0, RZ, RZ, R0, P1, P0 ;\n"
+        "        /*10040*/                   IMMA.16832.U8.U8 R4, R8.ROW, R2.COL, R4 ;\n"
+    )
+    assert tk.sass_count("IMAD.WIDE.U32.X", sass) == 1
+    assert tk.sass_count("IMAD.WIDE.U32", sass) == 2
+    assert tk.sass_count("IMMA", sass) == 1
+    hist = tk.sass_histogram(sass)["mont_mul_kernel<49>"]
+    assert hist["instructions"] == 5
+    assert dict(hist["top"])["IMAD.WIDE"] == 2 and dict(hist["top"])["IADD3.X"] == 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("js,ts,jops,tops", SPECS)
 def test_mul_tc_equals_plain_and_mont_mul_on_card(js, ts, jops, tops):
@@ -318,8 +532,9 @@ def test_kernels_equal_plain_on_card(js, ts, jops, tops):
     a = t(lazy_inputs(js, rng, 300)).cuda()
     b = t(lazy_inputs(js, rng, 300)).cuda()
     before = tf.mont_mul.launches
-    np.testing.assert_array_equal(tf.mont_mul(ts, a, b).cpu().numpy(),
-                                  tf._mul_plain(ts, a.cpu(), b.cpu()).numpy())
+    got = tf.mont_mul(ts, a, b).cpu().numpy()
+    np.testing.assert_array_equal(got, tf._mul_words_plain(ts, a.cpu(), b.cpu()).numpy())
+    np.testing.assert_array_equal(got, tf._mul_plain(ts, a.cpu(), b.cpu()).numpy())
     np.testing.assert_array_equal(tf.mont_redc(ts, a).cpu().numpy(),
                                   tf._redc_plain(ts, a.cpu()).numpy())
     assert tf.mont_mul.launches == before + 1
