@@ -14,18 +14,19 @@
 // 32-bit word; the mixed-radix interleaved Montgomery rounds of
 // field_common.cuh (W - 1 rounds of 32 bits and one of 16, W = ceil(n / 2))
 // then give (A B + m p) / R with m = -A B p^-1 mod R, the same integer as
-// the reference's mul_conv and the 16-bit-radix kernel's, so the same
+// the reference's mul_conv and a 16-bit-radix reduction's, so the same
 // canonical limbs.
 //
 // mont_redc<N> replaces ops/field.py::_make_pallas_redc: the same offset
-// and normalization, then REDC alone in 16-bit radix, (x + 256p + m p) / R.
-// This is the value model of the Pallas kernel; the JAX CPU path (mul_conv
-// by a raw 1) may differ from it by exactly p, which no zero test can see.
+// and normalization, then REDC alone in the same words (redc_words of
+// field_common.cuh: W - 1 rounds of 32 bits and one of 16, each t += m p,
+// no a_i B row), (X + m p) / R with X = x + 256p and m = -X p^-1 mod R, the
+// integer a 16-bit-radix REDC gives. This is the value model of the Pallas
+// kernel; the JAX CPU path (mul_conv by a raw 1) may differ from it by
+// exactly p, which no zero test can see.
 //
-// mont_mul16<N, THREADS> is the 16-bit-radix CIOS multiply that mont_mul
-// was before the word form. It stays as the body of celo_mont_mul_shape
-// (the block-width sweep) and so gives the old design's time beside the new
-// one's, in the same run on the same card.
+// celo_mont_mul_shape runs mont_mul's own body at n = 25, compiled for and
+// launched with 32 to 512 threads a block: the block-width sweep.
 //
 // Design of mont_mul. One thread per lane, a, b and the running sum t as W
 // words in registers (a, b and the two arrays of the running sum, 4 W + 2
@@ -40,72 +41,54 @@
 // field. Below one warp per warp scheduler (B <= 32 x 4 x the SM count) the
 // time is the latency of one thread's chain, and blocks of one warp spread
 // the lanes over all schedulers; above it blocks of 128 threads, four to an
-// SM (128 registers a thread at n = 49, no spill).
+// SM (128 registers a thread at n = 49, no spill). mont_redc is launched
+// the same way and holds x, the two arrays and t: 3 W + 2 words.
 //
-// What bounds it: per lane 2 W^2 word products, 4 W^2 32-bit multiply
-// instructions counted as a low and a high half each (half of that for
-// mont_redc's work), against 12 n bytes moved (8 n for mont_redc). At the
-// card's rates (3.35 TB/s; 33.5e12 lane instructions/s) the bytes are the
-// larger time at every n: 0.18 ns a lane against 0.075 ns at n = 49. The
-// rounds are carry chains of IMAD.WIDE.U32.X (field_common.cuh): one
+// What bounds them: per lane 2 W^2 word products for mont_mul and W^2 for
+// mont_redc, 4 W^2 and 2 W^2 32-bit multiply instructions counted as a low
+// and a high half each, against 12 n and 8 n bytes moved. At the card's
+// rates (3.35 TB/s; 33.5e12 lane instructions/s) the bytes are the larger
+// time at every n: 0.18 ns a lane against 0.075 ns for mont_mul at n = 49.
+// The rounds are carry chains of IMAD.WIDE.U32.X (field_common.cuh): one
 // instruction a word product, 872 instructions a lane at n = 25 (2,272 at
 // n = 49) where the 16-bit form spends 5,528 and plain C on uint64_t spent
-// 1,448 (a wide multiply-add and two to three carry adds a product). At
-// 2^20 lanes it runs at 0.8 of the byte bound at n = 17, 25 and 49; at a few
-// thousand lanes the time is one warp's chain, about 2.5 us. One lane a
-// thread: two lanes a thread at n = 17 and 25 were tried and were slower at
-// the small widths (half the warps) and no faster at the large ones.
+// 1,448 (a wide multiply-add and two to three carry adds a product).
+// mont_redc takes 1,352 at n = 49 where 16-bit rows took 10,368 and were
+// bound by them. At 2^20 lanes both kernels run at about 0.8 of the byte
+// bound at n = 17, 25 and 49; at a few thousand lanes the time is one
+// warp's chain, about 2.5 us (2.2 us for mont_redc). One lane a thread: two
+// lanes a thread at n = 17 and 25 were tried and were slower at the small
+// widths (half the warps) and no faster at the large ones.
 
 #include "field_common.cuh"
 
 namespace {
 
 using celo::FieldConsts;
-using celo::kMask;
 using celo::limb_of;
-using celo::load_normalized;
 using celo::load_words;
 using celo::mont_mul_words;
+using celo::redc_words;
 using celo::words_of;
 
 constexpr int kThreads = 128;    // threads a block at full width
 constexpr int kThreadsSmall = 32;  // below one warp per warp scheduler
 
-// one CIOS reduction row: t += m p with m = t[0] n0inv mod 2^16, then
-// t /= 2^16 (t[0] becomes divisible by 2^16; its high half moves to t[1])
+// t holds the result times 2^16 in W words: its limbs 1..n are the result's
 template <int N>
-__device__ __forceinline__ void reduce_row(uint32_t (&t)[N + 2],
-                                           const FieldConsts& c) {
-    const uint32_t m = (t[0] * c.n0inv) & kMask;
+__device__ __forceinline__ void store_result(int32_t* __restrict__ out,
+                                             int64_t lane, int64_t B,
+                                             const uint32_t (&t)[words_of(N)]) {
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-        const uint32_t prod = m * c.p[j];
-        t[j] += prod & kMask;
-        t[j + 1] += prod >> 16;
-    }
-    t[1] += t[0] >> 16;
-#pragma unroll
-    for (int j = 0; j < N + 1; ++j) t[j] = t[j + 1];
-    t[N + 1] = 0;
+    for (int k = 0; k < N; ++k)
+        out[k * B + lane] = static_cast<int32_t>(limb_of<words_of(N)>(t, k + 1));
 }
 
-// columns < 2^23 -> canonical limbs; the value is < 2p < R, so n limbs
-template <int N>
-__device__ __forceinline__ void store_carried(int32_t* __restrict__ out,
-                                              int64_t lane, int64_t B,
-                                              const uint32_t (&t)[N + 2]) {
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-        const uint32_t v = t[k] + carry;
-        out[k * B + lane] = static_cast<int32_t>(v & kMask);
-        carry = v >> 16;
-    }
-}
-
-// the word-form multiply: see the header, and field_common.cuh for the rounds
-template <int N>
-__global__ void __launch_bounds__(kThreads, 4)
+// the word-form multiply: see the header, and field_common.cuh for the
+// rounds. THREADS and MIN_BLOCKS set the register budget ptxas works to
+// (65,536 / (THREADS x MIN_BLOCKS), at most 255)
+template <int N, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t B, FieldConsts c) {
     constexpr int W = words_of(N);
@@ -115,58 +98,21 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
     load_words<N>(a, lane, B, c, aw);
     load_words<N>(b, lane, B, c, bw);
     mont_mul_words<W>(aw, bw, c, t);
-    // t holds the product times 2^16: its limbs 1..n are the result's
-#pragma unroll
-    for (int k = 0; k < N; ++k)
-        out[k * B + lane] = static_cast<int32_t>(limb_of<W>(t, k + 1));
+    store_result<N>(out, lane, B, t);
 }
 
-// The 16-bit-radix CIOS multiply. THREADS is the block size the kernel is
-// compiled for: the register budget ptxas works to follows from it
-// (65,536 / THREADS, at most 255)
-template <int N, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-mont_mul16_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                  int32_t* __restrict__ out, int64_t B, FieldConsts c) {
-    const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (lane >= B) return;
-    uint32_t an[N], bn[N];
-    load_normalized<N>(a, lane, B, c, an);
-    load_normalized<N>(b, lane, B, c, bn);
-    // column sums stay below 4 n 2^16 + carries < 2^23: no uint32 overflow
-    uint32_t t[N + 2];
-#pragma unroll
-    for (int j = 0; j < N + 2; ++j) t[j] = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-        const uint32_t ai = an[i];
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-            const uint32_t prod = ai * bn[j];
-            t[j] += prod & kMask;
-            t[j + 1] += prod >> 16;
-        }
-        reduce_row<N>(t, c);
-    }
-    store_carried<N>(out, lane, B, t);
-}
-
+// REDC in words: see the header, and field_common.cuh for the rounds
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 mont_redc_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ out,
                  int64_t B, FieldConsts c) {
+    constexpr int W = words_of(N);
     const int64_t lane = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     if (lane >= B) return;
-    uint32_t xn[N];
-    load_normalized<N>(x, lane, B, c, xn);
-    uint32_t t[N + 2];
-#pragma unroll
-    for (int j = 0; j < N; ++j) t[j] = xn[j];
-    t[N] = 0;
-    t[N + 1] = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) reduce_row<N>(t, c);
-    store_carried<N>(out, lane, B, t);
+    uint32_t xw[W], t[W];
+    load_words<N>(x, lane, B, c, xw);
+    redc_words<W>(xw, c, t);
+    store_result<N>(out, lane, B, t);
 }
 
 unsigned grid_for(int64_t B, int threads) {
@@ -187,11 +133,22 @@ int64_t one_warp_a_scheduler() {
     return lanes;
 }
 
+int threads_for(int64_t B) {
+    return B <= one_warp_a_scheduler() ? kThreadsSmall : kThreads;
+}
+
 template <int N>
 void launch_mul(const int32_t* a, const int32_t* b, int32_t* out, int64_t B,
                 const FieldConsts& c, cudaStream_t s) {
-    const int threads = B <= one_warp_a_scheduler() ? kThreadsSmall : kThreads;
-    mont_mul_kernel<N><<<grid_for(B, threads), threads, 0, s>>>(a, b, out, B, c);
+    const int threads = threads_for(B);
+    mont_mul_kernel<N, kThreads, 4><<<grid_for(B, threads), threads, 0, s>>>(a, b, out, B, c);
+}
+
+template <int N>
+void launch_redc(const int32_t* x, int32_t* out, int64_t B,
+                 const FieldConsts& c, cudaStream_t s) {
+    const int threads = threads_for(B);
+    mont_redc_kernel<N><<<grid_for(B, threads), threads, 0, s>>>(x, out, B, c);
 }
 
 }  // namespace
@@ -219,23 +176,23 @@ extern "C" int celo_mont_redc(int n, const FieldConsts* c, const int32_t* x,
                               int32_t* out, int64_t B, void* stream) {
     if (B <= 0) return 0;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const unsigned grid = grid_for(B, kThreads);
     switch (n) {
-        case 17: mont_redc_kernel<17><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
-        case 25: mont_redc_kernel<25><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
-        case 49: mont_redc_kernel<49><<<grid, kThreads, 0, s>>>(x, out, B, *c); break;
+        case 17: launch_redc<17>(x, out, B, *c, s); break;
+        case 25: launch_redc<25>(x, out, B, *c, s); break;
+        case 49: launch_redc<49>(x, out, B, *c, s); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-// The 16-bit-radix multiply at n = 25 with the block size chosen by the
-// caller (32, 64, 128, 256 or 512 threads): replaces the block-width sweep
-// kernel make_mul of the JAX package's scripts/prof_field.py. It is bound
-// by the bytes like celo_mont_mul and runs far above that bound, on about
-// 10 n^2 integer instructions a lane; each block size is its own
-// instantiation, so the sweep shows what registers per thread and blocks
-// per SM do to the same source.
+// mont_mul's body at n = 25 with the block size chosen by the caller (32,
+// 64, 128, 256 or 512 threads): replaces the block-width sweep kernel
+// make_mul of the JAX package's scripts/prof_field.py, which sweeps the
+// production multiply. Each block size is its own instantiation, built
+// for 512 threads an SM (THREADS x MIN_BLOCKS = 512), so that every shape
+// has mont_mul's budget of 128 registers and the sweep shows the block
+// shape alone; the 128-thread shape is mont_mul's own instance. Bound by
+// the bytes, as mont_mul is.
 extern "C" int celo_mont_mul_shape(int n, const FieldConsts* c,
                                    const int32_t* a, const int32_t* b,
                                    int32_t* out, int64_t B, int threads,
@@ -245,11 +202,11 @@ extern "C" int celo_mont_mul_shape(int n, const FieldConsts* c,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const unsigned grid = grid_for(B, threads);
     switch (threads) {
-        case 32: mont_mul16_kernel<25, 32><<<grid, 32, 0, s>>>(a, b, out, B, *c); break;
-        case 64: mont_mul16_kernel<25, 64><<<grid, 64, 0, s>>>(a, b, out, B, *c); break;
-        case 128: mont_mul16_kernel<25, 128><<<grid, 128, 0, s>>>(a, b, out, B, *c); break;
-        case 256: mont_mul16_kernel<25, 256><<<grid, 256, 0, s>>>(a, b, out, B, *c); break;
-        case 512: mont_mul16_kernel<25, 512><<<grid, 512, 0, s>>>(a, b, out, B, *c); break;
+        case 32: mont_mul_kernel<25, 32, 16><<<grid, 32, 0, s>>>(a, b, out, B, *c); break;
+        case 64: mont_mul_kernel<25, 64, 8><<<grid, 64, 0, s>>>(a, b, out, B, *c); break;
+        case 128: mont_mul_kernel<25, 128, 4><<<grid, 128, 0, s>>>(a, b, out, B, *c); break;
+        case 256: mont_mul_kernel<25, 256, 2><<<grid, 256, 0, s>>>(a, b, out, B, *c); break;
+        case 512: mont_mul_kernel<25, 512, 1><<<grid, 512, 0, s>>>(a, b, out, B, *c); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
     return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,7 @@
 // Shared by field.cu and field_tc.cu: the field constants as a kernel
 // parameter, the lazy-limb load of ops/field.py's data contract, and the
-// Montgomery arithmetic in 32-bit words that mont_mul and mont_mul_tc run.
+// Montgomery arithmetic in 32-bit words that mont_mul, mont_redc and
+// mont_mul_tc run.
 //
 // Data contract: a field batch is a row-major [n, B] int32 array, limb k of
 // lane l at k * B + l; inputs are lazy signed 16-bit-radix limbs,
@@ -18,10 +19,13 @@
 // whatever digits it is computed, so the interleaved (CIOS) form runs
 // W - 1 rounds of 32 bits (round i adds a's word i times b and
 // m_i = t_0 n0inv32 mod 2^32 times p, then drops a word) and one last round
-// of 16 bits (a's top half word, m_top = t_0 n0inv mod 2^16, drop 16 bits).
-// Together they divide by 2^(32 (W - 1) + 16) = R exactly, the digits
-// m_0 .. m_top concatenate to the same m as the 16-bit-radix kernels', and
-// (A B + m p) / R is the same integer: its canonical limbs are equal.
+// of 16 bits (a's top half word, m_top = t_0 n0inv32 mod 2^16, drop 16
+// bits). Together they divide by 2^(32 (W - 1) + 16) = R exactly, the
+// digits m_0 .. m_top concatenate to the same m as a 16-bit-radix reduction
+// computes (ops/field.py's _mul_plain), and (A B + m p) / R is the same
+// integer: its canonical limbs are equal.
+// REDC alone (redc_words) runs the same rounds without the a_i B rows:
+// (X + m p) / R with m = -X p^-1 mod R, again the 16-bit-radix integer.
 //
 // Range (derived, not assumed; tests/test_torch_field.py checks it with
 // Python integers at the budget's ends). A, B < 512p. After a 32-bit round
@@ -31,7 +35,9 @@
 // running sum is below 2^32 * 514p < 2^(32 (W + 1)): one more word. Before
 // the last round's 16-bit shift
 // t + a_top B + m_top p < 2^16 * 514p < 2^(32 W), again W words; after it
-// the value is < 2p < R, n limbs.
+// the value is < 2p < R, n limbs. For REDC take B out: X < 512p, a round
+// gives t' < t / 2^32 + p, so t < 513p between rounds, and the same bounds
+// hold.
 //
 // Every loop is unrolled at compile time, so that a round renames registers
 // instead of shifting them. The file also compiles for the host (the
@@ -59,31 +65,19 @@ constexpr int kMaxWords = (kMaxLimbs + 1) / 2;
 
 CELO_HD_CONSTEXPR int words_of(int n) { return (n + 1) / 2; }
 
+// pw comes first: the kernel parameter starts 8-byte aligned, and so do the
+// word pairs the rounds read (with pw at 4 mod 8, ptxas gave mont_mul<49> 8
+// more instructions a lane)
 struct FieldConsts {
-    uint32_t p[kMaxLimbs];       // p in 16-bit limbs (the 16-bit-radix kernels)
-    int32_t offset[kMaxLimbs];   // 256p in 16-bit limbs
     uint32_t pw[kMaxWords];      // p in 32-bit words; the top word is 0
-    uint32_t n0inv;              // -p^-1 mod 2^16
-    uint32_t n0inv32;            // -p^-1 mod 2^32
+    int32_t offset[kMaxLimbs];   // 256p in 16-bit limbs
+    uint32_t n0inv32;            // -p^-1 mod 2^32 (its low half: mod 2^16)
 };
 
-// lazy int32 limbs of one lane -> canonical limbs of (value + 256p)
-template <int N>
-CELO_HD void load_normalized(const int32_t* __restrict__ x, int64_t lane,
-                             int64_t B, const FieldConsts& c,
-                             uint32_t (&out)[N]) {
-    int32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-        int32_t v = x[k * B + lane] + c.offset[k] + carry;
-        carry = v >> 16;  // arithmetic shift: floor division
-        out[k] = static_cast<uint32_t>(v - (carry << 16));
-    }
-    // value + 256p lies in (0, 512p) < R: the carry out is 0
-}
-
-// the same load, packed: word j = limb 2j | limb 2j+1 << 16; the top word
-// holds limb n-1 alone
+// lazy int32 limbs of one lane -> the canonical limbs of (value + 256p),
+// packed: word j = limb 2j | limb 2j+1 << 16; the top word holds limb n-1
+// alone. One signed ripple: value + 256p lies in (0, 512p) < R, so the
+// carry out is 0
 template <int N>
 CELO_HD void load_words(const int32_t* __restrict__ x, int64_t lane, int64_t B,
                         const FieldConsts& c, uint32_t (&w)[words_of(N)]) {
@@ -92,7 +86,7 @@ CELO_HD void load_words(const int32_t* __restrict__ x, int64_t lane, int64_t B,
 #pragma unroll
     for (int k = 0; k < N; ++k) {
         const int32_t v = x[k * B + lane] + c.offset[k] + carry;
-        carry = v >> 16;
+        carry = v >> 16;  // arithmetic shift: floor division
         const uint32_t limb = static_cast<uint32_t>(v) & kMask;
         if (k & 1) w[k / 2] |= limb << 16;
         else w[k / 2] = limb;
@@ -223,10 +217,10 @@ CELO_HD void addc(uint32_t& d, uint32_t x) {
 // b has W words, p has W - 1 (guard limb), W is odd.
 //
 // mad_row is the round's first half, t += ai b with the swap and shift it
-// owes the round before; mont_round adds m p.
+// owes the round before; mont_round adds m p. b points at W words.
 template <int W>
 CELO_HD void mad_row(uint32_t (&even)[W + 1], uint32_t (&odd)[W + 1],
-                     uint32_t ai, const uint32_t (&b)[W], bool first) {
+                     uint32_t ai, const uint32_t* b, bool first) {
     static_assert(W % 2 == 1 && W >= 5, "an odd word count");
     if (first) {
 #pragma unroll
@@ -267,6 +261,22 @@ CELO_HD uint32_t mont_round(uint32_t (&even)[W + 1], uint32_t (&odd)[W + 1],
     return m;
 }
 
+// One round of REDC alone: m = t_0 n0inv32 mod 2^32 (LAST: mod 2^16),
+// t += m p. It is mad_row with m and p in place of ai and b: the swap and
+// shift owed to the round before ride on the products, and word 0 of t is
+// even_0 + odd_1 (mad_row's first add), from which m is taken before the
+// chains start. p's top word is 0, so the even chain's last product only
+// carries. Round 0 takes even = X's words (and a zero top word), odd = 0.
+// Returns m.
+template <int W, bool LAST>
+CELO_HD uint32_t redc_round(uint32_t (&even)[W + 1], uint32_t (&odd)[W + 1],
+                            const FieldConsts& c) {
+    uint32_t m = (even[0] + odd[1]) * c.n0inv32;
+    if (LAST) m &= kMask;
+    mad_row<W>(even, odd, m, c.pw, false);
+    return m;
+}
+
 // t = x + 2^32 y in W words: the last round's two arrays joined (the sum is
 // below 2^(32 W))
 template <int W>
@@ -299,6 +309,30 @@ CELO_HD void mont_mul_words(const uint32_t (&a)[W], const uint32_t (&b)[W],
     }
     // W - 1 is even: x is the even array of the last round
     const uint32_t m = mont_round<W, true>(x, y, a[W - 1], b, c, false);
+    if (digits) digits[W - 1] = m;
+    join_words<W>(x, y, t);
+}
+
+// t = (x + m p) / R * 2^16 in W words, x < 512p: REDC's limb k is limb
+// k + 1 of t, as for mont_mul_words. digits, when given, gets m_0 .. m_top.
+template <int W>
+CELO_HD void redc_words(const uint32_t (&xw)[W], const FieldConsts& c,
+                        uint32_t (&t)[W], uint32_t* digits = nullptr) {
+    uint32_t x[W + 1], y[W + 1];
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+        x[k] = xw[k];
+        y[k] = 0;
+    }
+    x[W] = 0;
+    y[W] = 0;
+#pragma unroll
+    for (int i = 0; i < W - 1; ++i) {
+        const uint32_t m = (i & 1) ? redc_round<W, false>(y, x, c)
+                                   : redc_round<W, false>(x, y, c);
+        if (digits) digits[i] = m;
+    }
+    const uint32_t m = redc_round<W, true>(x, y, c);
     if (digits) digits[W - 1] = m;
     join_words<W>(x, y, t);
 }

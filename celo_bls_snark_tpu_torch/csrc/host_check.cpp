@@ -4,11 +4,11 @@
 //   g++ -std=c++17 -O1 -o host_check host_check.cpp
 //   ./host_check < vectors.txt > results.txt
 //
-// Input, whitespace-separated integers: n B n0inv n0inv32, then n limbs of
-// p, n limbs of 256p, W = ceil(n / 2) words of p, then a and b as [n, B]
-// lazy limbs, row-major. Output, one line a lane: the n limbs of
-// mont_mul_words' product, the W digits m_0 .. m_top of its rounds, and the
-// 2n limbs of mul_full_words' product.
+// Input, whitespace-separated integers: n B n0inv32, then n limbs of 256p,
+// W = ceil(n / 2) words of p, then a and b as [n, B] lazy limbs, row-major.
+// Output, one line a lane: the n limbs of mont_mul_words' product, the W
+// digits m_0 .. m_top of its rounds, the 2n limbs of mul_full_words'
+// product, then the n limbs of redc_words(a) and the W digits of its rounds.
 
 #include <cstdio>
 #include <cstdlib>
@@ -32,19 +32,20 @@ int run(int64_t B, const FieldConsts& c, const std::vector<int32_t>& a,
         for (int i = 0; i < W; ++i) std::printf("%u ", digits[i]);
         mul_full_words<W>(aw, bw, full);
         for (int k = 0; k < 2 * N; ++k) std::printf("%u ", limb_of<2 * W>(full, k));
+        redc_words<W>(aw, c, t, digits);
+        for (int k = 0; k < N; ++k) std::printf("%u ", limb_of<W>(t, k + 1));
+        for (int i = 0; i < W; ++i) std::printf("%u ", digits[i]);
         std::printf("\n");
     }
     return 0;
 }
 
 int main() {
-    long long n, B, n0inv, n0inv32, v;
-    if (std::scanf("%lld %lld %lld %lld", &n, &B, &n0inv, &n0inv32) != 4) return 2;
+    long long n, B, n0inv32, v;
+    if (std::scanf("%lld %lld %lld", &n, &B, &n0inv32) != 3) return 2;
     if (n < 1 || n > kMaxLimbs || n % 2 == 0 || B < 1) return 2;
     FieldConsts c = {};
-    c.n0inv = static_cast<uint32_t>(n0inv);
     c.n0inv32 = static_cast<uint32_t>(n0inv32);
-    for (int k = 0; k < n; ++k) { if (std::scanf("%lld", &v) != 1) return 2; c.p[k] = static_cast<uint32_t>(v); }
     for (int k = 0; k < n; ++k) { if (std::scanf("%lld", &v) != 1) return 2; c.offset[k] = static_cast<int32_t>(v); }
     for (int j = 0; j < words_of(n); ++j) { if (std::scanf("%lld", &v) != 1) return 2; c.pw[j] = static_cast<uint32_t>(v); }
     std::vector<int32_t> a(n * B), b(n * B);

@@ -27,10 +27,14 @@ else raises. There is no fallback from the card to the plain version.
                   constant-operand products of the reduction on the tensor
                   cores; `mul` uses it under mul_kernel("tc") or with
                   CELO_MUL_MXU=1 in the environment
-  mont_mul_shape  the same function at n = 25 by the 16-bit-radix kernel,
-                  with the threads per block chosen by the caller
-                  (scripts/prof_field.py's sweep)
+  mont_mul_shape  mont_mul's kernel at n = 25 with the threads per block
+                  chosen by the caller (scripts/prof_field.py's sweep)
   mont_redc       lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
+                  and m = -X p^-1 mod R; the same rounds as mont_mul
+                  without the a_i B rows (see _redc_words_plain)
+
+_mul_plain and _redc_plain, in 16-bit radix, are the oracles the word-form
+plain versions are tested against: another digit order, the same integer.
 
 Host oracle: hostmath/fp.py.
 """
@@ -218,9 +222,9 @@ def _carry_out(spec: FieldSpec, cols: torch.Tensor) -> torch.Tensor:
 
 
 def _mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version of the 16-bit-radix multiply (mont_mul_shape's
-    kernel); a, b: [n, B] int32. The same integer as the JAX package's
-    mul_conv, in absolute-column CIOS form: row i adds a_i * b and m_i * p
+    """The 16-bit-radix multiply, the oracle of the word-form kernels; a, b:
+    [n, B] int32. The same integer as the JAX package's mul_conv, in
+    absolute-column CIOS form: row i adds a_i * b and m_i * p
     at columns i..i+n-1 and carries column i's high part into column i+1;
     columns n..2n then hold (A B + m p) / R."""
     n, B = spec.n, a.shape[1]
@@ -242,26 +246,23 @@ def _words(limbs16: torch.Tensor) -> torch.Tensor:
     return limbs16[0:-1:2] + (limbs16[1::2] << LIMB_BITS)
 
 
-def _mul_words_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
-                     digits: list = None) -> torch.Tensor:
-    """The plain version of mont_mul: the kernel's mixed-radix rounds, one
-    by one. Rounds 0 .. n // 2 - 1 each take a full 32-bit word a_i of A:
-    T += a_i B, m_i = T_0 n0inv32 mod 2^32, T += m_i p, drop 32 bits; the
-    last round takes A's top limb with m = T_0 n0inv mod 2^16 and drops 16
-    bits. Together they divide by 2^(32 (n // 2) + 16) = R, and the digits
-    m_i concatenate to m = -A B p^-1 mod R (appended to `digits`, when
-    given, as [B] tensors). T is held as 16-bit-radix columns in int64, so
-    a word product is two 32 x 16 products (32 x 32 bits overflow int64)
-    and a round's carries are deferred: a column stays below 2^55."""
-    n, B = spec.n, a.shape[1]
-    ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
-    an, bn = ab[:, :B], ab[:, B:]
-    aw = _words(an)
-    p = spec.column(spec.p_limbs, a.device, torch.int64)
-    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=a.device)
+def _word_rounds(spec: FieldSpec, T: torch.Tensor, row=None,
+                 digits: list = None) -> torch.Tensor:
+    """The word-form kernels' mixed-radix rounds on T, [2n + 1, B] int64
+    16-bit-radix columns that start out holding the value to reduce.
+    Rounds 0 .. n // 2 - 1 start at column 2i: T += row(i) (when `row` is
+    given: mont_mul's a_i B), m_i = T_0 n0inv32 mod 2^32, T += m_i p, drop 32
+    bits; the last round starts at column n - 1 with m = T_0 n0inv mod 2^16
+    and drops 16 bits. Together they divide by 2^(32 (n // 2) + 16) = R, and
+    the digits m_i concatenate to m = -T p^-1 mod R (appended to `digits`,
+    when given, as [B] tensors). A round's carries are deferred: a column
+    stays below 2^55. Returns the canonical limbs of the result."""
+    n = spec.n
+    p = spec.column(spec.p_limbs, T.device, torch.int64)
     for i in range(n // 2):
         k = 2 * i  # the limb where word i starts
-        T[k : k + n] += aw[i] * bn
+        if row is not None:
+            T[k : k + n] += row(i)
         t0 = (T[k] & WORD_MASK) + ((T[k + 1] & LIMB_MASK) << LIMB_BITS)
         # t0 n0inv32 wraps in int64; its low 32 bits are right all the same
         m = (t0 * spec.n0inv32) & WORD_MASK
@@ -270,13 +271,40 @@ def _mul_words_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
         T[k + 2] += T[k + 1] >> LIMB_BITS
         if digits is not None:
             digits.append(m)
-    T[n - 1 : 2 * n - 1] += an[n - 1] * bn
+    if row is not None:
+        T[n - 1 : 2 * n - 1] += row(n // 2)
     m = ((T[n - 1] & LIMB_MASK) * spec.n0inv) & LIMB_MASK
     T[n - 1 : 2 * n - 1] += m * p
     T[n] += T[n - 1] >> LIMB_BITS
     if digits is not None:
         digits.append(m)
     return _carry_out(spec, T[n:])
+
+
+def _mul_words_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor,
+                     digits: list = None) -> torch.Tensor:
+    """The plain version of mont_mul (and mont_mul_shape): the kernel's
+    rounds one by one (_word_rounds), round i adding A's 32-bit word i
+    times B, the last round A's top limb times B. m = -A B p^-1 mod R. A
+    word product is two 32 x 16 products (32 x 32 bits overflow int64)."""
+    n, B = spec.n, a.shape[1]
+    ab = _normalize_plain(spec, torch.cat([a, b], dim=1))
+    an, bn = ab[:, :B], ab[:, B:]
+    aw = _words(an)
+    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=a.device)
+    return _word_rounds(
+        spec, T, lambda i: (aw[i] if i < n // 2 else an[n - 1]) * bn, digits)
+
+
+def _redc_words_plain(spec: FieldSpec, x: torch.Tensor,
+                      digits: list = None) -> torch.Tensor:
+    """The plain version of mont_redc: the kernel's rounds one by one
+    (_word_rounds) on X = x + 256p with no row added, so the result is
+    (X + m p) / R with m = -X p^-1 mod R, _redc_plain's integer."""
+    n, B = spec.n, x.shape[1]
+    T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=x.device)
+    T[:n] = _normalize_plain(spec, x)
+    return _word_rounds(spec, T, None, digits)
 
 
 def _product_words_plain(an: torch.Tensor, bn: torch.Tensor) -> torch.Tensor:
@@ -375,7 +403,8 @@ def _mul_tc_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def _redc_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
-    """The plain version of mont_redc: canonical limbs of REDC(x + 256p)."""
+    """REDC(x + 256p) in 16-bit radix, the oracle of mont_redc: the
+    canonical limbs of (X + m p) / R."""
     n, B = spec.n, x.shape[1]
     p = spec.column(spec.p_limbs, x.device, torch.int64)
     T = torch.zeros((2 * n + 1, B), dtype=torch.int64, device=x.device)
@@ -442,7 +471,7 @@ class _MontRedc(_KernelWrapper):
 
     def __call__(self, spec: FieldSpec, x: torch.Tensor):
         if not self._check(spec, x):
-            return _redc_plain(spec, x)
+            return _redc_words_plain(spec, x)
         x = x.contiguous()
         out = torch.empty_like(x)
         kernels.launch_mont_redc(self._constants(spec), x, out)
@@ -491,7 +520,7 @@ class _MontMulShape(_KernelWrapper):
                 f"threads a block, got n = {spec.n}, {threads}"
             )
         if not self._check(spec, a, b):
-            return _mul_plain(spec, a, b)
+            return _mul_words_plain(spec, a, b)
         a, b = a.contiguous(), b.contiguous()
         out = torch.empty_like(a)
         kernels.launch_mont_mul_shape(self._constants(spec), a, b, out, threads)

@@ -97,7 +97,7 @@ def build() -> dict:
 
 
 def _kernel_name(mangled: str):
-    """`mont_mul16_kernel<25,128>` from a mangled entry name (template
+    """`mont_mul_kernel<25,128,4>` from a mangled entry name (template
     arguments read off it), or None for another function."""
     k = re.search(r"\d+(mont_\w+?_kernel)I((?:Li\d+E)+)E", mangled)
     if k is None:
@@ -146,8 +146,8 @@ def sass_histogram(text: str) -> dict:
 
 
 def ptxas_report(text: str) -> dict:
-    """`ptxas -v` output -> {kernel: {"registers", "spill_stores",
-    "spill_loads", "smem"}}, the kernel named as `mont_mul16_kernel<25,128>`."""
+    """`ptxas -v` output -> {kernel: {"registers", "stack", "spill_stores",
+    "spill_loads", "smem"}}, the kernel named as `mont_mul_kernel<25,128,4>`."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -155,8 +155,10 @@ def ptxas_report(text: str) -> dict:
             name = _kernel_name(m.group(1)) or m.group(1)
             out[name] = {}
         elif name and "spill stores" in ln:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-            out[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", ln)
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
         elif name and "Used" in ln:
             out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
             m = re.search(r"(\d+) bytes smem", ln)
@@ -213,19 +215,17 @@ class FieldConsts(ctypes.Structure):
     """celo::FieldConsts of csrc/field_common.cuh, field for field."""
 
     _fields_ = [
-        ("p", ctypes.c_uint32 * MAX_LIMBS),
-        ("offset", ctypes.c_int32 * MAX_LIMBS),
         ("pw", ctypes.c_uint32 * MAX_WORDS),
-        ("n0inv", ctypes.c_uint32),
+        ("offset", ctypes.c_int32 * MAX_LIMBS),
         ("n0inv32", ctypes.c_uint32),
     ]
 
 
 class FieldConstants:
     """A field's constants as the C interface takes them: the limb count
-    and a host FieldConsts, with p also in 32-bit words (the top word 0:
-    the guard limb) and n0inv32 = -p^-1 mod 2^32 for the word-form
-    multiplies."""
+    and a host FieldConsts: 256p in 16-bit limbs (the load's offset), p in
+    32-bit words (the top word 0: the guard limb) and n0inv32 = -p^-1 mod
+    2^32."""
 
     def __init__(self, spec):
         n, words = spec.n, spec.p_words
@@ -237,11 +237,9 @@ class FieldConstants:
         self.n = n
         c = self.consts = FieldConsts()
         for k in range(n):
-            c.p[k] = int(spec.p_limbs[k])
             c.offset[k] = int(spec.offset_limbs[k])
         for j, w in enumerate(words):
             c.pw[j] = int(w)
-        c.n0inv = int(spec.n0inv)
         c.n0inv32 = int(spec.n0inv32)
 
     @property
@@ -272,7 +270,7 @@ def launch_mont_mul(consts: FieldConstants, a, b, out):
 
 
 def launch_mont_mul_shape(consts: FieldConstants, a, b, out, threads: int):
-    """The 16-bit-radix multiply at n = 25 with `threads` threads a block
+    """mont_mul's kernel at n = 25 with `threads` threads a block
     (SHAPE_THREADS)."""
     err = library().celo_mont_mul_shape(
         *consts.args, _ptr(a), _ptr(b), _ptr(out), ctypes.c_int64(a.shape[1]),

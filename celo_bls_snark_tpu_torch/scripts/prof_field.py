@@ -1,8 +1,13 @@
-"""Launch-shape sweep of the Montgomery multiply on the card: the
-16-bit-radix multiply at n = 25 (fq377) compiled for and launched with 32,
-64, 128, 256 and 512 threads a block (the counterpart of the block-width
-sweep of the JAX package's scripts/prof_field.py), and beside those five
-rows mont_mul itself, the 32-bit-word kernel the paths use.
+"""Launch-shape sweep of the Montgomery multiply on the card: mont_mul's
+32-bit-word body at n = 25 (fq377), the one the paths run, compiled for and
+launched with 32, 64, 128, 256 and 512 threads a block (the counterpart of
+the block-width sweep of the JAX package's scripts/prof_field.py, which
+sweeps its production multiply to find the block shape it runs best at),
+and beside those five rows mont_mul itself, which picks its own block
+(one warp up to one warp a scheduler, 128 threads above). Every shape is
+built for 512 threads an SM, so each has mont_mul's budget of 128
+registers and the rows differ by the block shape alone; the 128-thread
+shape is mont_mul's own instance.
 
 Per row it prints ns per multiply per lane over an 8-deep dependent chain
 at B = 2^16 lanes, and the registers per thread and spill bytes ptxas
@@ -44,21 +49,27 @@ def _chain(mul, a, b):
     return x
 
 
+def shape_kernel(threads):
+    """The instance csrc/field.cu launches for a block of `threads`:
+    built for 512 threads an SM."""
+    return f"mont_mul_kernel<25,{threads},{512 // threads}>"
+
+
 def sweep(B=1 << 16, threads=kernels.SHAPE_THREADS, iters=20, device="cuda"):
-    """One row per block size of the 16-bit-radix kernel and a last row for
+    """One row per block size of mont_mul's kernel and a last row for
     mont_mul ("threads": null, it picks its own): {"kernel", "threads",
     "us_per_call", "ns_per_mul_lane", "eager_us_per_call", "registers",
-    "spill_stores", "spill_loads", "equal"}."""
+    "stack", "spill_stores", "spill_loads", "smem", "equal"}."""
     device = require_device(device)
     spec = F.FQ
     a, b = _inputs(spec, B, device)
     want = _chain(lambda x, y: F.mont_mul(spec, x, y), a, b)
     on_card = device.type == "cuda"
     regs = kernels.ptxas_report(kernels.build()["ptxas"]) if on_card else {}
-    cases = [(f"mont_mul16_kernel<25,{th}>", th,
+    cases = [(shape_kernel(th), th,
               lambda x, y, th=th: F.mont_mul_shape(spec, x, y, th))
              for th in threads]
-    cases.append(("mont_mul_kernel<25>", None, lambda x, y: F.mont_mul(spec, x, y)))
+    cases.append((shape_kernel(128), None, lambda x, y: F.mont_mul(spec, x, y)))
     rows = []
     for kernel, th, mul in cases:
         got = _chain(mul, a, b)

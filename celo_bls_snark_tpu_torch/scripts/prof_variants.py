@@ -1,21 +1,26 @@
-"""Design variants of mont_mul and mont_mul_tc, built and timed beside the
-shipped sources in one run on the card.
+"""Design variants of mont_mul, mont_redc and mont_mul_tc, built and timed
+beside the shipped sources in one run on the card.
 
 Each variant is a copy of csrc/ with one textual edit, compiled with the
 flags of ops/kernels.py into build/variants/<name>/ (one thread per
 variant). Per variant it prints the registers and spill bytes ptxas
 reports, mont_mul_tc's blocks an SM and shared memory as the runtime
 reports them, whether the output still equals the 16-bit-radix plain
-version (where the variant computes the function), and the card's time per
-launch from a replayed CUDA graph. The shipped sources are timed first and
+versions (where the variant computes the function), and the card's time per
+launch from a replayed CUDA graph: the multiplies at MUL_SHAPES and
+TC_SHAPES, mont_redc at MUL_SHAPES. The shipped sources are timed first and
 last, so drift over the run shows. It ends with the instruction counts of
 the shipped kernels (cuobjdump -sass).
 
 Variants:
-  mul_bounds_none / _3 / _5  mont_mul built for no minimum, 3 or 5 blocks of
-                             128 threads an SM (shipped: 4)
+  mul_bounds_none / _3 / _5  mont_mul built for 1 (no register cap below
+                             255), 3 or 5 blocks of 128 threads an SM
+                             (shipped: 4)
   mul_two_lanes              mont_mul with two lanes a thread at n = 17, 25,
                              their rounds interleaved
+  redc_blocks_128            mont_redc in blocks of 128 threads at every
+                             width (shipped: one warp a block up to one warp
+                             a warp scheduler)
   tc_blocks_4                mont_mul_tc<49> built for 4 blocks an SM
                              (shipped: 3)
   tc_no_matrix               mont_mul_tc with both matrix products skipped:
@@ -49,8 +54,8 @@ MUL_SHAPES = [(25, 2), (25, 12288), (25, 1 << 20), (17, 1 << 19),
 TC_SHAPES = [(25, 1 << 20), (17, 1 << 19), (49, 6 << 15), (49, 1 << 20)]
 
 TWO_LANES = '''
-template <int N>
-__global__ void __launch_bounds__(kThreads, 4)
+template <int N, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ out, int64_t B, FieldConsts c) {
     constexpr int W = words_of(N);
@@ -98,19 +103,19 @@ def _replace(old, new):
     return edit
 
 
+MUL_LAUNCH = "mont_mul_kernel<N, kThreads, 4><<<grid_for(B, threads)"
+
+
 def _two_lanes(text):
     i = text.index("// the word-form multiply: see the header")
-    j = text.index("// The 16-bit-radix CIOS multiply. THREADS")
+    j = text.index("// REDC in words: see the header")
     text = text[:i] + TWO_LANES + text[j:]
-    return _replace(
-        "<<<grid_for(B, threads), threads, 0, s>>>(a, b, out, B, c);\n}",
-        "<<<grid_for(B, threads * (N <= 25 ? 2 : 1)), threads, 0, s>>>(a, b, out, B, c);\n}",
-    )(text)
+    return _replace(MUL_LAUNCH, MUL_LAUNCH.replace(
+        "threads)", "threads * (N <= 25 ? 2 : 1))"))(text)
 
 
-def _bounds(to):
-    return _replace("__launch_bounds__(kThreads, 4)\nmont_mul_kernel",
-                    f"__launch_bounds__({to})\nmont_mul_kernel")
+def _bounds(blocks):
+    return _replace(MUL_LAUNCH, MUL_LAUNCH.replace(", 4>", f", {blocks}>"))
 
 
 def _no_matrix(text):
@@ -122,11 +127,14 @@ def _no_matrix(text):
 
 # name -> ({file: edit}, which kernels to time, output still the function)
 VARIANTS = {
-    "shipped": ({}, ("mul", "tc"), True),
-    "mul_bounds_none": ({"field.cu": _bounds("kThreads")}, ("mul",), True),
-    "mul_bounds_3": ({"field.cu": _bounds("kThreads, 3")}, ("mul",), True),
-    "mul_bounds_5": ({"field.cu": _bounds("kThreads, 5")}, ("mul",), True),
+    "shipped": ({}, ("mul", "redc", "tc"), True),
+    "mul_bounds_none": ({"field.cu": _bounds(1)}, ("mul",), True),
+    "mul_bounds_3": ({"field.cu": _bounds(3)}, ("mul",), True),
+    "mul_bounds_5": ({"field.cu": _bounds(5)}, ("mul",), True),
     "mul_two_lanes": ({"field.cu": _two_lanes}, ("mul",), True),
+    "redc_blocks_128": ({"field.cu": _replace(
+        "const int threads = threads_for(B);\n    mont_redc_kernel",
+        "const int threads = kThreads;\n    mont_redc_kernel")}, ("redc",), True),
     "tc_blocks_4": ({"field_tc.cu": _replace("min_of(N > 25 ? 3 : 4,", "min_of(4,")},
                     ("tc",), True),
     "tc_no_matrix": ({"field_tc.cu": _no_matrix}, ("tc",), False),
@@ -183,18 +191,20 @@ def measure(name, built, inputs, want):
     res = {"variant": name,
            "registers_spill_stores_loads": {
                k: (v["registers"], v["spill_stores"], v["spill_loads"])
-               for k, v in regs.items() if "mont_mul_kernel" in k or "_tc_" in k},
+               for k, v in regs.items() if k.startswith("mont_")},
            "tc_occupancy": {n: kernels.tc_occupancy(n) for n in SPECS}}
-    for tag, kern, shapes in (("mul", F.mont_mul, MUL_SHAPES), ("tc", F.mont_mul_tc, TC_SHAPES)):
+    kerns = (("mul", F.mont_mul, MUL_SHAPES), ("redc", F.mont_redc, MUL_SHAPES),
+             ("tc", F.mont_mul_tc, TC_SHAPES))
+    for tag, kern, shapes in kerns:
         if tag not in which:
             continue
         for n, B in shapes:
-            a, b = inputs[(n, B)]
-            got = kern(SPECS[n], a, b)
+            args = inputs[(n, B)][:1] if tag == "redc" else inputs[(n, B)]
+            got = kern(SPECS[n], *args)
             torch.cuda.synchronize()
-            if is_function and (n, B) in want:
-                res[f"{tag}_exact_{n}_{B}"] = bool(torch.equal(got, want[(n, B)]))
-            ms = time_ms(lambda: kern(SPECS[n], a, b), 200 if B < 100000 else 30, graph=True)
+            if is_function and (tag, n, B) in want:
+                res[f"{tag}_exact_{n}_{B}"] = bool(torch.equal(got, want[(tag, n, B)]))
+            ms = time_ms(lambda: kern(SPECS[n], *args), 200 if B < 100000 else 30, graph=True)
             res[f"{tag}_ms_{n}_{B}"] = ms
     return res
 
@@ -208,8 +218,11 @@ def main():
     gen.manual_seed(3)
     inputs = {(n, B): (lazy_batch(SPECS[n], B, gen), lazy_batch(SPECS[n], B, gen))
               for n, B in set(MUL_SHAPES + TC_SHAPES)}
-    want = {k: F._mul_plain(SPECS[k[0]], *v) for k, v in inputs.items()
-            if k[1] <= 6 << 15}
+    small = {k: v for k, v in inputs.items() if k[1] <= 6 << 15}
+    want = {("mul", *k): F._mul_plain(SPECS[k[0]], *v) for k, v in small.items()}
+    want.update({("tc", *k): w for (_, *k), w in want.items()})
+    want.update({("redc", *k): F._redc_plain(SPECS[k[0]], v[0])
+                 for k, v in small.items()})
     order = names + (["shipped"] if "shipped" in names and len(names) > 1 else [])
     ok = True
     for name in order:

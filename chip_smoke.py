@@ -10,15 +10,15 @@ Phases (each prints one line or more; any failure exits non-zero):
      random lazy inputs in (-256p, 256p) with signed limbs (the first lanes
      hold 0, 1, p - 1, the budget's ends +-255p and values whose top limb
      is nonzero), at n = 17, 25, 49 and B in {1, 127, 128, 4099, 2^20}:
-     mont_mul (32-bit words; also against the 16-bit-radix plain version
-     and, at n = 25, against the 16-bit-radix kernel), mont_redc, and
-     mont_mul_tc (also exactly against mont_mul); mont_mul_shape at each
-     block size. Then, again exactly against the plain version, each
-     kernel's time, bound and plain-version time at the widths the paths
-     launch, printed at the end as one `kernels` line (`ms` is the card's
-     time per launch, from a replayed CUDA graph of the launches;
-     `eager_ms` the time per call issued from Python); the 16-bit-radix
-     kernel is timed beside mont_mul at the same widths;
+     mont_mul and mont_redc (32-bit words; also against the 16-bit-radix
+     plain versions, and against the integer model at B = 127), mont_mul_tc
+     (also exactly against mont_mul); at n = 25 mont_mul_shape at each
+     block size (also exactly against mont_mul). Then, again exactly
+     against the plain version, each kernel's time, bound and plain-version
+     time at the widths the paths launch, and mont_mul_shape's five shapes
+     at the sweep's width, printed at the end as one `kernels` line (`ms`
+     is the card's time per launch, from a replayed CUDA graph of the
+     launches; `eager_ms` the time per call issued from Python);
   3. entry(): the 8-message, 4-validator verification is True on the
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
@@ -114,30 +114,27 @@ KERNEL_INFO = {
 }
 NO_LIBRARY = ("no PyTorch call computes a multi-precision Montgomery "
               "product or reduction")
-PLAIN = {"mont_mul": F._mul_words_plain, "mont_redc": F._redc_plain,
-         "mont_mul_tc": F._mul_tc_plain, "mont_mul_shape": F._mul_plain}
+PLAIN = {"mont_mul": F._mul_words_plain, "mont_redc": F._redc_words_plain,
+         "mont_mul_tc": F._mul_tc_plain, "mont_mul_shape": F._mul_words_plain}
 # (n, B) timed per kernel: the widths the paths launch. Verification: the
 # fold's complete adds (6 x 2048 lanes), to_affine's inversion and the
 # Miller loop's infinity tests (2), the pairing's Fq12 products at batch 2
 # (54 x 2), f12_is_one (12 x 1). Prover: the NTT stages (n = 25 and 17 at
-# 2^19), pointwise products and to_raw (2^20), the Pippenger suffix rounds
-# (2^15 lanes at n = 49) and the madd's two stacked layers (5 and 6 x 2^15),
-# the batch inversion's products and zero test (n = 49 at 2^20)
+# 2^19), pointwise products and to_raw (2^20, n = 17), the Pippenger suffix
+# rounds (2^15 lanes at n = 49) and the madd's two stacked layers (5 and
+# 6 x 2^15), the batch inversion's products and zero test (n = 49 at 2^20)
 L_MSM = 1 << 15
 TIMED = {
     "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 16), (25, 1 << 19),
                  (25, 1 << 20), (17, 1 << 19), (49, L_MSM), (49, 5 * L_MSM),
                  (49, 6 * L_MSM), (49, 1 << 20)],
-    "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (49, 1 << 20)],
+    "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (17, 1 << 20), (49, 1 << 20)],
     "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19), (49, L_MSM),
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
 MAIN_WIDTH = {"mont_mul": (25, 12288), "mont_redc": (25, 2),
               "mont_mul_tc": (49, 6 * L_MSM)}
 SHAPE_B = 1 << 16  # the launch-shape sweep's width, n = 25
-# widths at which the 16-bit-radix kernel (128 threads a block) is timed
-# beside mont_mul, n = 25
-OLD_DESIGN_B = [12288, 1 << 16, 1 << 20]
 
 
 def bound(name, n, B):
@@ -146,10 +143,10 @@ def bound(name, n, B):
     operations / peak rate, whatever implements the work. The card
     multiplies 32 x 32 bits, so per lane a Montgomery multiply is
     2 W^2 word products, W = ceil(n / 2) (A B and m p), each a low and a
-    high half: 4 W^2 32-bit multiply instructions for mont_mul (and for the
-    16-bit-radix kernel behind mont_mul_shape, which is held to the same
-    work), half of that for mont_redc, at the FP32 lane-instruction rate (a
-    ceiling on the integer rate). mont_mul_tc keeps one of the two products
+    high half: 4 W^2 32-bit multiply instructions for mont_mul and
+    mont_mul_shape (the same body), half of that for mont_redc (W^2 word
+    products: m p alone), at the FP32 lane-instruction rate (a ceiling on
+    the integer rate). mont_mul_tc keeps one of the two products
     on the CUDA cores (2 W^2) and does 2 (2n 2n + 4n 2n) = 24 n^2 8-bit
     operations on the tensor cores; its operations time is the larger of
     the two."""
@@ -284,22 +281,23 @@ def phase_kernels():
     for n, spec in SPECS.items():
         for B in WIDTHS:
             a, b = lazy_batch(spec, B, gen), lazy_batch(spec, B, gen)
-            got = F.mont_mul(spec, a, b)
-            hold("mont_mul", f"n={n} B={B}", got, F._mul_words_plain(spec, a, b))
+            got, want = F.mont_mul(spec, a, b), F._mul_words_plain(spec, a, b)
+            hold("mont_mul", f"n={n} B={B}", got, want)
             hold("mont_mul", f"n={n} B={B} against the 16-bit-radix plain version",
                  got, F._mul_plain(spec, a, b))
             got_r = F.mont_redc(spec, a)
-            hold("mont_redc", f"n={n} B={B}", got_r, F._redc_plain(spec, a))
+            hold("mont_redc", f"n={n} B={B}", got_r, F._redc_words_plain(spec, a))
+            hold("mont_redc", f"n={n} B={B} against the 16-bit-radix plain version",
+                 got_r, F._redc_plain(spec, a))
             got_tc = F.mont_mul_tc(spec, a, b)
             hold("mont_mul_tc", f"n={n} B={B}", got_tc, F._mul_tc_plain(spec, a, b))
             hold("mont_mul_tc", f"n={n} B={B} against mont_mul", got_tc, got)
             if n == 25:
                 for th in kernels.SHAPE_THREADS:
-                    got_16 = F.mont_mul_shape(spec, a, b, th)
-                    hold("mont_mul_shape", f"threads={th} B={B}",
-                         got_16, F._mul_plain(spec, a, b))
-                    hold("mont_mul", f"B={B} against the 16-bit-radix kernel "
-                         f"({th} threads)", got, got_16)
+                    got_s = F.mont_mul_shape(spec, a, b, th)
+                    hold("mont_mul_shape", f"threads={th} B={B}", got_s, want)
+                    hold("mont_mul_shape", f"threads={th} B={B} against mont_mul",
+                         got_s, got)
             if B == 127:
                 check_model(spec, a, b, got)
                 check_model(spec, a, b, got_tc)
@@ -332,15 +330,14 @@ def phase_kernels():
             rows[name].append(timed_row(
                 name, spec, B, lambda: kern(spec, *args),
                 lambda: PLAIN[name](spec, *args)))
-    rows["mont_mul_shape"] = []
-    for B in OLD_DESIGN_B:
-        a, b = lazy_batch(F.FQ, B, gen), lazy_batch(F.FQ, B, gen)
-        rows["mont_mul_shape"] += [
-            timed_row("mont_mul_shape", F.FQ, B,
-                      lambda th=th: F.mont_mul_shape(F.FQ, a, b, th),
-                      lambda: F._mul_plain(F.FQ, a, b), extra={"threads": th}.items())
-            for th in (kernels.SHAPE_THREADS if B == SHAPE_B else (128,))
-        ]
+    a, b = lazy_batch(F.FQ, SHAPE_B, gen), lazy_batch(F.FQ, SHAPE_B, gen)
+    rows["mont_mul_shape"] = [
+        timed_row("mont_mul_shape", F.FQ, SHAPE_B,
+                  lambda th=th: F.mont_mul_shape(F.FQ, a, b, th),
+                  lambda: PLAIN["mont_mul_shape"](F.FQ, a, b),
+                  extra={"threads": th}.items())
+        for th in kernels.SHAPE_THREADS
+    ]
     return rows, worst
 
 
@@ -472,6 +469,10 @@ def phase_shape_sweep():
     launches = {k.name: k.launches for k in F.KERNELS}
     if not all(r["equal"] for r in rows):
         fail("shape sweep: a block size's chain differs from mont_mul's")
+    stray = {r["kernel"]: r for r in rows
+             if r.get("spill_stores") or r.get("spill_loads") or "registers" not in r}
+    if stray:
+        fail(f"shape sweep: a shape spills or has no ptxas report: {stray}")
     if launches["mont_mul_shape"] <= 0:
         fail("shape sweep: mont_mul_shape was not launched")
     line({"phase": "shape_sweep", "B": SHAPE_B, "rows": rows, "launches": launches})

@@ -19,7 +19,10 @@ mont_mul's plain version (_mul_words_plain) runs the kernel's mixed-radix
 rounds (32-bit digits, one last 16-bit digit); it is held limb for limb
 against mul_conv and the 16-bit-radix plain version, its digits against
 m = -A B p^-1 mod R, and the ranges the kernel's word arithmetic relies on
-against Python integers. Where the machine has g++, the CUDA sources' word
+against Python integers. mont_redc's plain version (_redc_words_plain) runs
+the same rounds without the a_i B rows; it is held limb for limb against the
+16-bit-radix REDC and the kernel's value model, and its digits against
+m = -X p^-1 mod R. Where the machine has g++, the CUDA sources' word
 arithmetic itself (csrc/field_common.cuh, which also compiles for the host)
 is run on the same inputs."""
 
@@ -294,10 +297,11 @@ def test_mul_kernel_selector(monkeypatch):
 def test_mont_mul_shape_routes_and_validates():
     rng = random.Random(13)
     a, b = t(lazy_inputs(jf.FQ, rng, 8)), t(lazy_inputs(jf.FQ, rng, 8))
+    want = tf._mul_words_plain(tf.FQ, a, b).numpy()
+    np.testing.assert_array_equal(want, tf._mul_plain(tf.FQ, a, b).numpy())
     for threads in (32, 64, 128, 256, 512):
         np.testing.assert_array_equal(
-            tf.mont_mul_shape(tf.FQ, a, b, threads).numpy(),
-            tf._mul_plain(tf.FQ, a, b).numpy())
+            tf.mont_mul_shape(tf.FQ, a, b, threads).numpy(), want)
     with pytest.raises(ValueError):
         tf.mont_mul_shape(tf.FQ, a, b, 96)
     x = t(lazy_inputs(jf.FR, rng, 8))
@@ -362,12 +366,59 @@ def test_word_constants_against_python_integers(js, ts, jops, tops):
     assert int(ts.p_words[-1]) == 0  # the guard limb: p has W - 1 words
     c = tk.FieldConstants(ts)
     assert c.args[0] == n
-    assert ctypes.sizeof(tk.FieldConsts) == 4 * (49 + 49 + 25 + 2)
-    assert list(c.consts.p)[:n] == [int(x) for x in ts.p_limbs]
+    assert ctypes.sizeof(tk.FieldConsts) == 4 * (49 + 25 + 1)
+    assert tk.FieldConsts.pw.offset == 0  # the word pairs start 8-byte aligned
     assert list(c.consts.offset)[:n] == [int(x) for x in ts.offset_limbs]
     assert list(c.consts.pw)[: ts.n_words] == [int(w) for w in ts.p_words]
-    assert not any(list(c.consts.p)[n:]) and not any(list(c.consts.pw)[ts.n_words:])
-    assert (c.consts.n0inv, c.consts.n0inv32) == (ts.n0inv, ts.n0inv32)
+    assert not any(list(c.consts.offset)[n:]) and not any(list(c.consts.pw)[ts.n_words:])
+    assert c.consts.n0inv32 == ts.n0inv32
+
+
+def redc_edge_inputs(spec, rng, B=40):
+    """Lazy limbs (signed carries) of values for REDC: the lazy zeros 0, p,
+    -p, 5p, the budget's ends +-(256p - 1) and +-255p, 1, p - 1, then
+    random values in the budget."""
+    p = spec.modulus
+    edge = [0, p, -p, 5 * p, 256 * p - 1, -(256 * p - 1), 255 * p, -255 * p, 1, p - 1]
+    vals = edge + [rng.randrange(-256 * p + 1, 256 * p) for _ in range(B - len(edge))]
+    return vals, lazy_limbs(spec.n, vals, rng)
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_redc_words_plain_limb_exact(js, ts, jops, tops):
+    """mont_redc's plain version against the 16-bit-radix REDC, the kernel's
+    value model and, mod p and through is_zero_many, JAX-CPU's redc_many."""
+    rng = random.Random(19)
+    vals, x = redc_edge_inputs(js, rng)
+    got = tf._redc_words_plain(ts, t(x)).numpy()
+    np.testing.assert_array_equal(got, tf._redc_plain(ts, t(x)).numpy())
+    np.testing.assert_array_equal(got, tf.mont_redc(ts, t(x)).numpy())
+    assert [tf.limbs_to_int(c) for c in got.T] == redc_model(js, x)
+    assert got.min() >= 0 and got.max() < 1 << 16
+    p = js.modulus
+    assert all(tf.limbs_to_int(c) < 2 * p for c in got.T)
+    want = np.asarray(jops.redc_many([jnp.asarray(x)])[0])
+    for g, w in zip(got.T, want.T):
+        assert tf.limbs_to_int(g) % p == tf.limbs_to_int(w) % p
+    zero = tops.is_zero_many([t(x)])[0].numpy()
+    np.testing.assert_array_equal(zero, np.asarray(jops.is_zero_many([jnp.asarray(x)])[0]))
+    assert zero.tolist() == [v % p == 0 for v in vals]
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_redc_digits_concatenate_to_m(js, ts, jops, tops):
+    """REDC's n // 2 digits of 32 bits and one of 16 concatenate to
+    m = -X p^-1 mod R, X = x + 256p."""
+    rng = random.Random(20)
+    vals, x = redc_edge_inputs(js, rng)
+    digits = []
+    tf._redc_words_plain(ts, t(x), digits)
+    assert len(digits) == ts.n_words
+    p, R = js.modulus, 1 << (16 * js.n)
+    for j, v in enumerate(vals):
+        m = sum(int(d[j]) << (32 * i) for i, d in enumerate(digits))
+        assert int(digits[-1][j]) < 1 << 16
+        assert m == (-(v + 256 * p) * pow(p, -1, R)) % R
 
 
 def word_rounds(spec, A, Bv):
@@ -410,6 +461,28 @@ def test_word_rounds_stay_in_range(js, ts, jops, tops):
         assert out < 2 * p and out == (A * Bv + ((-A * Bv * pow(p, -1, R)) % R) * p) // R
 
 
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS)
+def test_redc_word_rounds_stay_in_range(js, ts, jops, tops):
+    """What mont_redc's registers rely on: from X < 512p, t < 513p fits W
+    words between rounds, a round's sum fits W + 1 words, the last round's
+    sum fits W words, and the result is (X + m p) / R < 2p."""
+    rng = random.Random(21)
+    p, W, R = ts.modulus, ts.n_words, 1 << (16 * ts.n)
+    top = 512 * p - 1
+    ones = (1 << (top.bit_length() - 1)) - 1
+    for X in [0, 1, p, top, ones, 256 * p] + [rng.randrange(top + 1) for _ in range(200)]:
+        tt = X
+        for i in range(W - 1):
+            s = tt + ((tt * ts.n0inv32) & 0xFFFFFFFF) * p
+            assert s % (1 << 32) == 0 and s < 1 << (32 * (W + 1))
+            tt = s >> 32
+            assert tt < 513 * p < 1 << (32 * W)
+        s = tt + ((tt * ts.n0inv) & 0xFFFF) * p
+        assert s % (1 << 16) == 0 and s < 1 << (32 * W)
+        assert s >> 16 < 2 * p
+        assert s >> 16 == (X + ((-X * pow(p, -1, R)) % R) * p) // R
+
+
 @pytest.fixture(scope="module")
 def host_check(tmp_path_factory):
     """csrc/host_check.cpp built with g++: the CUDA sources' word
@@ -425,20 +498,21 @@ def host_check(tmp_path_factory):
 
 @pytest.mark.parametrize("js,ts,jops,tops", SPECS)
 def test_cuda_word_arithmetic_on_the_host(js, ts, jops, tops, host_check):
-    """load_words, the mixed-radix rounds and the full word product of
-    csrc/field_common.cuh, run on the host: the product's limbs equal
+    """load_words, the mixed-radix rounds, the full word product and REDC
+    of csrc/field_common.cuh, run on the host: the product's limbs equal
     mul_conv's, the digits equal the plain version's, the full product
-    equals Python's."""
+    equals Python's; REDC's limbs equal the integer model's and its digits
+    the plain version's."""
     rng = random.Random(18)
     va, vb, a, b = edge_inputs(js, rng, 24)
-    n, B, p = ts.n, len(va), ts.modulus
-    fields = [n, B, ts.n0inv, ts.n0inv32, *ts.p_limbs, *ts.offset_limbs,
-              *ts.p_words, *a.reshape(-1), *b.reshape(-1)]
+    n, B, p, W = ts.n, len(va), ts.modulus, ts.n_words
+    fields = [n, B, ts.n0inv32, *ts.offset_limbs, *ts.p_words,
+              *a.reshape(-1), *b.reshape(-1)]
     run = subprocess.run([str(host_check)], input=" ".join(str(int(x)) for x in fields),
                          capture_output=True, text=True, check=True)
     rows = np.array([[int(x) for x in ln.split()] for ln in run.stdout.splitlines()],
                     dtype=np.int64)
-    assert rows.shape == (B, n + ts.n_words + 2 * n)
+    assert rows.shape == (B, n + W + 2 * n + n + W)
     want = np.asarray(jops.mul_conv(jnp.asarray(a), jnp.asarray(b)))
     np.testing.assert_array_equal(rows[:, :n].T, want)
     digits = []
@@ -446,19 +520,32 @@ def test_cuda_word_arithmetic_on_the_host(js, ts, jops, tops, host_check):
     np.testing.assert_array_equal(rows[:, n : n + ts.n_words].T,
                                   torch.stack(digits).numpy())
     for j, (x, y) in enumerate(zip(va, vb)):
-        assert tf.limbs_to_int(rows[j, n + ts.n_words :]) == (x + 256 * p) * (y + 256 * p)
+        assert tf.limbs_to_int(rows[j, n + W : 3 * n + W]) == (x + 256 * p) * (y + 256 * p)
+    redc = rows[:, 3 * n + W : 4 * n + W]
+    assert [tf.limbs_to_int(r) for r in redc] == redc_model(js, a)
+    digits = []
+    tf._redc_words_plain(ts, t(a), digits)
+    np.testing.assert_array_equal(rows[:, 4 * n + W :].T, torch.stack(digits).numpy())
 
 
 def test_prof_field_sweep_rows_on_cpu():
     """The launch-shape sweep's rows without a card: five block sizes of
-    the 16-bit-radix kernel and mont_mul beside them, all the same limbs."""
+    mont_mul's kernel, each built for 512 threads an SM, and mont_mul
+    beside them (its own 128-thread instance), all the same limbs."""
     from celo_bls_snark_tpu_torch.scripts import prof_field
 
     rows = prof_field.sweep(B=8, device="cpu")
     assert [r["threads"] for r in rows] == [32, 64, 128, 256, 512, None]
-    assert rows[-1]["kernel"] == "mont_mul_kernel<25>"
-    assert all(r["kernel"] == f"mont_mul16_kernel<25,{r['threads']}>" for r in rows[:-1])
+    assert [r["kernel"] for r in rows] == [
+        "mont_mul_kernel<25,32,16>", "mont_mul_kernel<25,64,8>",
+        "mont_mul_kernel<25,128,4>", "mont_mul_kernel<25,256,2>",
+        "mont_mul_kernel<25,512,1>", "mont_mul_kernel<25,128,4>"]
     assert all(r["equal"] for r in rows)
+    # every instance the sweep names is one that csrc/field.cu launches
+    src = (tk.CSRC / "field.cu").read_text()
+    for th in tk.SHAPE_THREADS:
+        assert f"mont_mul_kernel<25, {th}, {512 // th}><<<grid, {th}, 0, s>>>" in src
+    assert "mont_mul_kernel<N, kThreads, 4><<<" in src
 
 
 def test_prof_variants_edits_still_apply():
@@ -468,7 +555,7 @@ def test_prof_variants_edits_still_apply():
 
     assert "shipped" in prof_variants.VARIANTS
     for name, (edits, which, _) in prof_variants.VARIANTS.items():
-        assert set(which) <= {"mul", "tc"}
+        assert set(which) <= {"mul", "redc", "tc"}
         for fname, edit in edits.items():
             text = (tk.CSRC / fname).read_text()
             assert edit(text) != text, name
@@ -482,15 +569,20 @@ def test_compiler_report_parsers():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 0 barriers\n"
         "ptxas info    : Compiling entry function "
-        "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab17mont_mul16_kernelILi25ELi128EEEvPKiS2_PilN4celo11FieldConstsE' for 'sm_90a'\n"
+        "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab15mont_mul_kernelILi25ELi32ELi16EEEvPKiS2_PilN4celo11FieldConstsE' for 'sm_90a'\n"
         "    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
         "ptxas info    : Used 96 registers, used 0 barriers, 16 bytes smem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab16mont_redc_kernelILi17EEEvPKiPilN4celo11FieldConstsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 0 barriers\n"
     )
     rep = tk.ptxas_report(ptxas)
     assert rep["mont_mul_kernel<49>"] == {
-        "spill_stores": 0, "spill_loads": 0, "registers": 128, "smem": 0}
-    assert rep["mont_mul16_kernel<25,128>"] == {
-        "spill_stores": 8, "spill_loads": 12, "registers": 96, "smem": 16}
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 128, "smem": 0}
+    assert rep["mont_mul_kernel<25,32,16>"] == {
+        "stack": 8, "spill_stores": 8, "spill_loads": 12, "registers": 96, "smem": 16}
+    assert rep["mont_redc_kernel<17>"]["registers"] == 40
     sass = (
         "\t\tFunction : _ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab15mont_mul_kernelILi49EEEvPKiS2_PilN4celo11FieldConstsE\n"
         "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
@@ -535,6 +627,11 @@ def test_kernels_equal_plain_on_card(js, ts, jops, tops):
     got = tf.mont_mul(ts, a, b).cpu().numpy()
     np.testing.assert_array_equal(got, tf._mul_words_plain(ts, a.cpu(), b.cpu()).numpy())
     np.testing.assert_array_equal(got, tf._mul_plain(ts, a.cpu(), b.cpu()).numpy())
-    np.testing.assert_array_equal(tf.mont_redc(ts, a).cpu().numpy(),
-                                  tf._redc_plain(ts, a.cpu()).numpy())
+    redc = tf.mont_redc(ts, a).cpu().numpy()
+    np.testing.assert_array_equal(redc, tf._redc_words_plain(ts, a.cpu()).numpy())
+    np.testing.assert_array_equal(redc, tf._redc_plain(ts, a.cpu()).numpy())
     assert tf.mont_mul.launches == before + 1
+    if ts.n == 25:
+        for threads in tk.SHAPE_THREADS:
+            np.testing.assert_array_equal(
+                tf.mont_mul_shape(ts, a, b, threads).cpu().numpy(), got)
