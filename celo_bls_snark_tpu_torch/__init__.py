@@ -11,7 +11,11 @@ module here has a counterpart of the same name there:
   hash_to_curve/  CIP22 try-and-increment (host input builder)
   keys.py         private/public keys for the input builder
   ops/            batched device arithmetic: Montgomery fields (with the
-                  CUDA kernels in csrc/), towers, curves, pairing, BLS
+                  CUDA kernels in csrc/), towers, curves, pairing, BLS,
+                  MSM, NTT, and the message hashing of verification
+                  (Blake2s/Blake2Xs, Edwards-BW6 Pedersen CRH, CIP22
+                  hash-to-G1)
+  batch.py        exponent sizing of the strict batch verifier
   entry.py        the small flagship verification step
   bench.py        aggregate-verification throughput on the card
   convert.py      numpy pytrees <-> torch tensor trees

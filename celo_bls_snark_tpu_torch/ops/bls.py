@@ -2,14 +2,16 @@
 main-path functions of the JAX package's ops/bls.py; reference:
 crates/bls-crypto/src/bls/{public,signature,batch}.rs).
 
-Message hashing runs on the host (hash_to_curve/); these functions consume
-message HASH POINTS, as the reference's `batch_verify_hashes` does.
+Most of these functions consume message HASH POINTS, as the reference's
+`batch_verify_hashes` does; batch_verify_messages_device hashes the
+messages on the card first (ops/hash_to_g1.py), as `batch_verify` does.
 """
 
 import torch
 
 from ..hostmath import curves as hostcurves
 from ..hostmath.params import G2_GENERATOR
+from ..utils.profiling import device_sync, stage
 from ..utils.tree import tree_map
 from .field import FQ
 from . import curve as dc
@@ -113,6 +115,101 @@ def batch_verify_grouped_device(sigs_jac, hashes_jac, apks_aff, groups: int):
     sigs_jac / hashes_jac: G1 projective batches [G*B]; apks_aff: G2 affine
     batch [G]. Returns a bool tensor of shape [1]."""
     return batch_verify_grouped_stages(sigs_jac, hashes_jac, apks_aff, groups)["ok"]
+
+
+def batch_verify_messages_device(sigs_jac, apks_aff, domain, messages,
+                                 extra_data=b"", groups: int = 1,
+                                 composite: bool = False,
+                                 num_counters: int = 24,
+                                 compat: bool = True):
+    """The reference's `Signature::batch_verify` including message hashing
+    (signature.rs:101-117) as one pipeline on the signatures' device:
+    batched CIP22 try-and-increment hash-to-G1 (ops/hash_to_g1.py; the
+    Pedersen CRH when `composite`) feeding the grouped (G+1)-pairing check.
+    The rare no-valid-counter lanes (probability ~0.58^num_counters) are
+    hashed by the host hasher and merged on the card.
+
+    sigs_jac: G1 projective [len(messages)]; apks_aff: G2 affine [groups];
+    messages: equal-length byte strings, group g owning the contiguous
+    lanes [g*B, (g+1)*B). extra_data: shared bytes or a per-message list.
+    Returns a bool tensor of shape [1]. Its stages are timed under
+    utils/profiling.py's names h2g.crh, h2g.round1, h2g.round2 and
+    bls.pairing."""
+    hashes_jac, _fallback = hash_messages_device(
+        domain, messages, extra_data, composite, num_counters, compat,
+        sigs_jac[0].device,
+    )
+    with stage("bls.pairing"):
+        ok = batch_verify_grouped_device(sigs_jac, hashes_jac, apks_aff, groups)
+        device_sync(ok)
+    return ok
+
+
+def hash_messages_device(domain, messages, extra_data=b"", composite=False,
+                         num_counters: int = 24, compat: bool = True,
+                         device="cuda"):
+    """The message hashes of batch_verify_messages_device: (G1 projective
+    batch [len(messages)] on `device`, the lanes hashed by the host
+    fallback as a list)."""
+    from ..hashers.composite import composite_hasher
+    from ..hashers.direct import DirectHasher
+    from .hash_to_g1 import composite_crh_bytes, hash_to_g1_device, host_fallback
+
+    if composite:
+        with stage("h2g.crh"):
+            crh_u8 = composite_crh_bytes(messages, device)
+    else:
+        crh_u8 = None
+    hashes_jac, has = hash_to_g1_device(
+        domain, messages, extra_data, compat=compat,
+        num_counters=num_counters, crh_u8=crh_u8, device=device,
+    )
+    if has.all():
+        return hashes_jac, []
+    hasher = composite_hasher() if composite else DirectHasher()
+    patch = host_fallback(hasher, domain, messages, extra_data, has, compat)
+    idx = torch.tensor(list(patch), dtype=torch.int64, device=hashes_jac[0].device)
+    pts = dc.g1_pack(list(patch.values()), idx.device)
+    hashes_jac = tree_map(lambda full, part: full.index_copy(-1, idx, part),
+                          hashes_jac, pts)
+    return hashes_jac, list(patch)
+
+
+def _interleave(a, b):
+    """Lane-interleave two equal-batch trees: [B], [B] -> [2B]
+    (a0 b0 a1 b1 ...)."""
+    return tree_map(
+        lambda x, y: torch.stack([x, y], dim=-1).reshape(*x.shape[:-1], -1), a, b
+    )
+
+
+def strict_batch_verify_device(expdigits, sigs_jac, pks_jac, hashes_aff,
+                               groups: int, c: int = 4):
+    """Many strict (rogue-key-defended) batch verifications in one program,
+    the batched form of running `Batch::verify` per epoch (batch.rs:44-84
+    via bls-snark-sys batch_verify_strict, signatures.rs:336-404).
+
+    Per group g (one message/epoch, V entries):
+      e(sum_i r_i sig_i, -g2) * e(H_g, sum_i r_i pk_i) == 1
+    with per-entry random exponents r_i. The two random linear
+    combinations run as Straus grouped MSMs (ops/msm.py: shared Horner
+    doubling at group width); the 2G pairing legs share one batched Miller
+    pass and one final exponentiation.
+
+    expdigits: [nw, G*V] window digits of the random exponents
+               (msm.window_digits, MSB-first, base 2^c);
+    sigs_jac / pks_jac: projective G1/G2 batches [G*V];
+    hashes_aff: G1 affine batch [G] (the per-epoch message hashes).
+    Returns bool [G]: per-epoch results, as the reference's per-batch
+    result array."""
+    from . import msm as dmsm
+
+    bsig = dmsm.straus_msm_groups(dc.g1, expdigits, sigs_jac, groups, c)
+    bpk = dmsm.straus_msm_groups(dc.g2, expdigits, pks_jac, groups, c)
+    negg2 = neg_g2_gen_affine(hashes_aff[0].device, groups)
+    p = _interleave(dc.g1.to_affine(bsig), hashes_aff)
+    q = _interleave(negg2, dc.g2.to_affine(bpk))
+    return verify_pairs_device(p, q)
 
 
 def verify_pairs_device(p_aff, q_aff):

@@ -69,6 +69,19 @@ def limbs_to_int(limbs) -> int:
     return v
 
 
+def _sub_limbs_u32(a: torch.Tensor, b: torch.Tensor):
+    """(a - b) on canonical [n, B] limbs, as int64 tensors: returns
+    (diff, borrow), diff canonical mod 2^(16n) and borrow 1 where a < b."""
+    a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+    diff = torch.empty_like(a)
+    borrow = torch.zeros_like(a[0])
+    for k in range(a.shape[0]):
+        v = a[k] - b[k] - borrow
+        borrow = (v < 0).to(torch.int64)
+        diff[k] = v & LIMB_MASK
+    return diff, borrow
+
+
 def _as_numpy(arr) -> np.ndarray:
     if isinstance(arr, torch.Tensor):
         return arr.detach().cpu().numpy()

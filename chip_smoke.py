@@ -41,7 +41,23 @@ Phases (each prints one line or more; any failure exits non-zero):
   7. the same MSM and h-polynomial under mul_kernel("tc"): the same point
      and the same limbs, every multiply through mont_mul_tc; then one
      profiled MSM (under mont_mul) for the card's busy share;
-  8. the `kernels` line and the last line: {"ok": true, "device": {...}}.
+  8. hash_verify: hashing-included batch verification at the JAX hash
+     bench's configuration (16,384 messages, 100 validators, 24 counters,
+     compat mode) through ops/bls.py::batch_verify_messages_device, for the
+     DirectHasher and the composite CRH: signatures (sum sk) H built on the
+     card from the path's own hashes; with the launch counts set to 0 just
+     before and read just after, the warm-up verification is True; 256
+     sampled lanes, every lane round 2 resolved and every host-fallback lane
+     equal the host TryAndIncrementCIP22's points; a tampered batch is
+     False; 2 timed verifications give the metric line (scripts/
+     bench_hash_verify.py's, with seconds per stage); one profiled
+     DirectHasher verification gives the card's busy share;
+  9. strict_verify: strict per-epoch batch verification at
+     scripts/bench_strategies.py's configuration (300 epochs x 20
+     validators, per-epoch extra_data, composite hashing on the card, c = 4,
+     17-byte exponents): every epoch True, one planted bad signature flips
+     exactly its epoch; seconds of hashing plus verification;
+ 10. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of the JAX package, and exits non-zero without
 printing a result when no card is available.
@@ -73,14 +89,34 @@ def fail(msg):
 if not torch.cuda.is_available():
     fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
 
+import numpy as np  # noqa: E402
+
 from celo_bls_snark_tpu_torch import bench  # noqa: E402
 from celo_bls_snark_tpu_torch import entry as port_entry  # noqa: E402
+from celo_bls_snark_tpu_torch.batch import (  # noqa: E402
+    SECURITY_BOUND,
+    byte_count_from_target_batch_size,
+)
 from celo_bls_snark_tpu_torch.convert import tree_to_numpy  # noqa: E402
+from celo_bls_snark_tpu_torch.hash_to_curve.try_and_increment_cip22 import (  # noqa: E402
+    TryAndIncrementCIP22,
+    composite_hash_to_g1_cip22,
+)
+from celo_bls_snark_tpu_torch.hashers.composite import (  # noqa: E402
+    composite_hasher,
+    crh_parameters,
+)
+from celo_bls_snark_tpu_torch.hashers.direct import DirectHasher  # noqa: E402
 from celo_bls_snark_tpu_torch.hostmath import curves as hc  # noqa: E402
+from celo_bls_snark_tpu_torch.hostmath.params import G2_GENERATOR, R  # noqa: E402
+from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import curve as dc  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import field as F  # noqa: E402
+from celo_bls_snark_tpu_torch.ops import hash_to_g1  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import kernels  # noqa: E402
+from celo_bls_snark_tpu_torch.ops import msm  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import ntt as dntt  # noqa: E402
+from celo_bls_snark_tpu_torch.scripts import bench_hash_verify as hash_bench  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_msm_ntt as prover  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import prof_field  # noqa: E402
 from celo_bls_snark_tpu_torch.snark.accel import DeviceAccel  # noqa: E402
@@ -122,13 +158,20 @@ PLAIN = {"mont_mul": F._mul_words_plain, "mont_redc": F._redc_words_plain,
 # (54 x 2), f12_is_one (12 x 1). Prover: the NTT stages (n = 25 and 17 at
 # 2^19), pointwise products and to_raw (2^20, n = 17), the Pippenger suffix
 # rounds (2^15 lanes at n = 49) and the madd's two stacked layers (5 and
-# 6 x 2^15), the batch inversion's products and zero test (n = 49 at 2^20)
+# 6 x 2^15), the batch inversion's products and zero test (n = 49 at 2^20).
+# Hashing at 16,384 messages: round 1's exponentiation and Legendre zero
+# test (5 counters x 16,384 lanes), the cofactor multiply's complete adds
+# (6 x 16,384), the Tonelli-Shanks table matches (to_raw at 16,384), the
+# Pedersen CRH's mixed adds (4 x 8 chunk lanes x 16,384)
 L_MSM = 1 << 15
+L_H2G = 16384
 TIMED = {
     "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 16), (25, 1 << 19),
                  (25, 1 << 20), (17, 1 << 19), (49, L_MSM), (49, 5 * L_MSM),
-                 (49, 6 * L_MSM), (49, 1 << 20)],
-    "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (17, 1 << 20), (49, 1 << 20)],
+                 (49, 6 * L_MSM), (49, 1 << 20), (25, 5 * L_H2G), (25, 6 * L_H2G),
+                 (25, 32 * L_H2G)],
+    "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (17, 1 << 20), (49, 1 << 20),
+                  (25, L_H2G), (25, 5 * L_H2G)],
     "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19), (49, L_MSM),
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
@@ -380,8 +423,7 @@ def stage_breakdown(sigs, hashes, apk):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        times[name] = {"s": time.perf_counter() - t0,
-                       **{k.name: k.launches for k in F.KERNELS}}
+        times[name] = {"s": time.perf_counter() - t0, **launch_counts()}
         return out
 
     st = bench.dbls.batch_verify_grouped_stages(sigs, hashes, apk, 1, stage=stage)
@@ -390,32 +432,39 @@ def stage_breakdown(sigs, hashes, apk):
     return times, st
 
 
-def device_profile(sigs, hashes, apk):
-    """One verification under torch.profiler: wall time, the summed time
-    of all kernels on the card, its share of the wall time, kernel count,
-    and the kernels that took the most device time."""
+def launch_counts():
+    return {k.name: k.launches for k in F.KERNELS}
+
+
+def busy_profile(fn):
+    """One call of fn under torch.profiler: wall time, the summed time of
+    all kernels on the card and its share of the wall, kernel count, the
+    port's own kernels and the kernels that took the most device time.
+    Only the card's activity is traced: host events would add a hundred
+    thousand records to sort for numbers this line does not print."""
     from torch.profiler import ProfilerActivity, profile
 
+    t_all = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bench.verify(sigs, hashes, apk)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     cuda = torch.autograd.DeviceType.CUDA
     kern = [e for e in prof.key_averages() if e.device_type == cuda]
     busy_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    ours = [e for e in kern if "mont_" in e.key]
+    rows = lambda es: [{"name": e.key[:60], "count": e.count,  # noqa: E731
+                        "device_s": e.self_device_time_total / 1e6} for e in es]
     return {
-        "port_kernels": [{"name": e.key[:60], "count": e.count,
-                          "device_s": e.self_device_time_total / 1e6} for e in ours],
+        "port_kernels": rows(e for e in kern if "mont_" in e.key),
         "wall_s": wall,
         "device_busy_s": busy_us / 1e6 if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / wall if busy_us else "not measured",
         "kernel_launches": sum(e.count for e in kern),
-        "top_kernels": [{"name": e.key[:60], "count": e.count,
-                         "device_s": e.self_device_time_total / 1e6} for e in top],
+        "top_kernels": rows(top),
+        "profile_s": time.perf_counter() - t_all,
         "note": "profiled run; the profiler adds host time per launch",
     }
 
@@ -433,7 +482,7 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
     t0 = time.perf_counter()
     bench.warm_up(sigs, hashes, apk)
     warm_s = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in F.KERNELS}
+    launches = launch_counts()
     for name in ("mont_mul", "mont_redc"):
         if launches[name] <= 0:
             fail(f"main path: kernel {name} was not launched")
@@ -451,7 +500,8 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
         fail("main path: tampered batch verified True")
     metric = bench.timed(n_messages, sigs, hashes, apk, n_iter=n_iter)
     line({"phase": "main_path_stages", **stages})
-    line({"phase": "main_path_profile", **device_profile(sigs, hashes, apk)})
+    line({"phase": "main_path_profile",
+          **busy_profile(lambda: bench.verify(sigs, hashes, apk))})
     line({"phase": "main_path", "messages": n_messages,
           "validators": n_validators, "groups": 1, "input_build_s": build_s,
           "warmup_s": warm_s, "launches_per_verify": launches,
@@ -461,12 +511,155 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
     return launches
 
 
+def require_path_kernels(path, launches):
+    """The path's own kernels ran, and no other multiply did."""
+    for name in ("mont_mul", "mont_redc"):
+        if launches[name] <= 0:
+            fail(f"{path}: kernel {name} was not launched")
+    if launches["mont_mul_tc"] or launches["mont_mul_shape"]:
+        fail(f"{path}: unexpected launch counts {launches}")
+
+
+def phase_hash_verify(n_messages=16384, n_validators=100, n_iter=2,
+                      n_sample=256, seed=20261017):
+    """Hashing-included batch verification at the JAX bench's
+    configuration, through ops/bls.py::batch_verify_messages_device, for
+    the DirectHasher and the composite CRH. Returns the launches of the two
+    warm-up verifications."""
+    t0 = time.perf_counter()
+    sk_sum, apk = hash_bench.committee(n_validators)
+    apk_aff = bench.dbls.pack_g2_affine([apk], DEV)
+    msgs = hash_bench.messages(n_messages)
+    committee_s = time.perf_counter() - t0
+    total = {}
+    for composite in (False, True):
+        hasher_name = "composite" if composite else "direct"
+        t0 = time.perf_counter()
+        if composite:
+            crh_parameters()  # the generator table, built once in Python
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sigs, hashes, fallback = hash_bench.signatures(sk_sum, msgs, composite, DEV)
+        torch.cuda.synchronize()
+        sign_s = time.perf_counter() - t0
+        # the path, with the launch counts set to 0 just before and read
+        # just after exactly this verification
+        F.reset_launches()
+        t0 = time.perf_counter()
+        ok = bool(hash_bench.verify(sigs, apk_aff, msgs, composite)[0])
+        warm_s = time.perf_counter() - t0
+        launches = launch_counts()
+        if not ok:
+            fail(f"hash_verify ({hasher_name}): the honest batch verified False")
+        require_path_kernels(f"hash_verify ({hasher_name})", launches)
+        add_launches(total, launches)
+        # the lanes round 1 left to round 2: the hash at round 1's counters alone
+        crh = hash_to_g1.composite_crh_bytes(msgs, DEV) if composite else None
+        _, has1 = hash_to_g1.hash_to_g1_device(
+            SIG_DOMAIN, msgs, b"", num_counters=hash_to_g1.ROUND1_COUNTERS,
+            crh_u8=crh, device=DEV)
+        round2 = sorted(set(np.nonzero(~has1)[0].tolist()) - set(fallback))
+        sample = random.Random(seed).sample(range(n_messages), n_sample)
+        lanes = sorted(set(sample) | set(round2) | set(fallback))
+        t0 = time.perf_counter()
+        idx = torch.tensor(lanes, device=DEV)
+        got = dc.g1_unpack(tree_map(lambda x: x[:, idx], hashes))
+        h2c = TryAndIncrementCIP22(composite_hasher() if composite else DirectHasher(),
+                                   "g1", True)
+        want = [h2c.hash(SIG_DOMAIN, msgs[i], b"") for i in lanes]
+        host_s = time.perf_counter() - t0
+        bad = [lanes[k] for k in range(len(lanes)) if got[k] != want[k]]
+        if bad:
+            fail(f"hash_verify ({hasher_name}): lanes {bad[:8]} differ from the "
+                 f"host TryAndIncrementCIP22 ({len(bad)} of {len(lanes)})")
+        if bool(hash_bench.verify(tamper_first_lane(sigs), apk_aff, msgs, composite)[0]):
+            fail(f"hash_verify ({hasher_name}): the tampered batch verified True")
+        metric = hash_bench.timed(sigs, apk_aff, msgs, composite, n_iter)
+        if not composite:  # one profiled verification for the busy share
+            line({"phase": "hash_verify_profile", "hasher": hasher_name,
+                  **busy_profile(lambda: hash_bench.verify(sigs, apk_aff, msgs, False))})
+        line({"phase": "hash_verify", "hasher": hasher_name, "messages": n_messages,
+              "validators": n_validators, "num_counters": hash_bench.NUM_COUNTERS,
+              "compat": True, "committee_s": committee_s, "setup_s": setup_s,
+              "sign_on_card_s": sign_s, "warmup_s": warm_s,
+              "launches_per_verify": launches, "ok": True, "tampered_ok": False,
+              "host_checked_lanes": len(lanes), "host_checked_sample": n_sample,
+              "host_checked_round2": len(round2), "host_check_s": host_s,
+              "fallback_lanes": len(fallback), "equal_host": True})
+        line(metric)
+    return total
+
+
+def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
+    """Strict per-epoch batch verification at scripts/bench_strategies.py's
+    configuration: n_epochs epochs, the same n_validators validators
+    signing every epoch, per-epoch extra_data, composite hashing on the
+    card, Straus MSMs with windows of c bits over exponents of
+    byte_count_from_target_batch_size(n_validators, 128) bytes. Returns the
+    launches of the honest run."""
+    G, V = n_epochs, n_validators
+    rng = random.Random(seed)
+    t0 = time.perf_counter()
+    msgs = [b"block %06d" % g for g in range(G)]
+    extras = [b"extra %04d" % g for g in range(G)]
+    h2c = composite_hash_to_g1_cip22()
+    # the signatures sign the HOST hashes, so a True verdict also holds the
+    # card's hashes against the host's
+    hs_host = [h2c.hash(SIG_DOMAIN, m, e) for m, e in zip(msgs, extras)]
+    sks = [rng.randrange(1, R) for _ in range(V)]
+    pk_jac = dc.g2_pack([hc.G2.mul(s, G2_GENERATOR) for s in sks] * G, DEV)
+    skbits = torch.tensor([[(s >> (252 - b)) & 1 for s in sks] * G for b in range(253)],
+                          dtype=torch.int32, device=DEV)
+    h_per_val = dc.g1_pack([h for h in hs_host for _ in range(V)], DEV)
+    sig_jac = dc.g1.scalar_mul_bits(skbits, h_per_val)
+    nb = byte_count_from_target_batch_size(V, SECURITY_BOUND)
+    digits = torch.from_numpy(msm.window_digits(
+        [rng.randrange(1 << (8 * nb)) for _ in range(G * V)], 8 * nb, c)).to(DEV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def strict(sigs):
+        hashes, fallback = bench.dbls.hash_messages_device(
+            SIG_DOMAIN, msgs, extras, composite=True, num_counters=24, device=DEV)
+        h_aff = dc.g1.to_affine(hashes)
+        out = bench.dbls.strict_batch_verify_device(digits, sigs, pk_jac, h_aff, G, c)
+        return out.cpu().tolist(), fallback
+
+    F.reset_launches()
+    t0 = time.perf_counter()
+    res, fallback = strict(sig_jac)
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    if not all(res):
+        fail(f"strict_verify: epochs {[g for g in range(G) if not res[g]][:8]} False")
+    require_path_kernels("strict_verify", launches)
+    bad_epoch = rng.randrange(G)
+    lane = bad_epoch * V + rng.randrange(V)
+    bad = tree_map(lambda d, x: torch.cat([x[:, :lane], d, x[:, lane + 1:]], dim=-1),
+                   dc.g1.double(tree_map(lambda x: x[:, lane:lane + 1], sig_jac)),
+                   sig_jac)
+    res_bad, _ = strict(bad)
+    if res_bad != [g != bad_epoch for g in range(G)]:
+        fail(f"strict_verify: a bad signature in epoch {bad_epoch} gave False at "
+             f"{[g for g in range(G) if not res_bad[g]][:8]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    strict(sig_jac)
+    timed_s = time.perf_counter() - t0
+    line({"phase": "strict_verify", "epochs": G, "validators": V, "c": c,
+          "exponent_bytes": nb, "hashing": "composite", "setup_s": setup_s,
+          "first_s": first_s, "seconds": timed_s, "epochs_per_s": G / timed_s,
+          "launches": launches, "fallback_lanes": len(fallback), "all_true": True,
+          "bad_epoch": bad_epoch, "only_bad_epoch_false": True})
+    return launches
+
+
 def phase_shape_sweep():
     """The launch-shape sweep through its script's entry point, with the
     counts set to 0 just before and read just after."""
     F.reset_launches()
     rows = prof_field.sweep(B=SHAPE_B)
-    launches = {k.name: k.launches for k in F.KERNELS}
+    launches = launch_counts()
     if not all(r["equal"] for r in rows):
         fail("shape sweep: a block size's chain differs from mont_mul's")
     stray = {r["kernel"]: r for r in rows
@@ -491,7 +684,7 @@ def msm_profile(accel, bases, ss):
 
     profiling.reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         accel.g1.msm(bases, ss)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -564,6 +757,8 @@ def main():
     phase_entry()
     by_path = {"verify": phase_main(), "shape_sweep": phase_shape_sweep()}
     by_path["prover_cios"], by_path["prover_tc"] = phase_prover()
+    by_path["hash_verify"] = phase_hash_verify()
+    by_path["strict_verify"] = phase_strict_verify()
     out = []
     for name, per_width in rows.items():
         if name == "mont_mul_shape":
