@@ -435,13 +435,19 @@ def _redc_plain(spec: FieldSpec, x: torch.Tensor) -> torch.Tensor:
 
 class _KernelWrapper:
     """A kernel's entry point. `launches` counts the kernel launches (and
-    nothing else: calls on CPU tensors go to the plain version)."""
+    nothing else: calls on CPU tensors go to the plain version), and
+    `launches_by_n` splits them by limb count (the kernel's template N)."""
 
     name = ""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_n = {}
         self._consts = {}
+
+    def _launched(self, spec: FieldSpec):
+        self.launches += 1
+        self.launches_by_n[spec.n] = self.launches_by_n.get(spec.n, 0) + 1
 
     def _constants(self, spec: FieldSpec) -> "kernels.FieldConstants":
         c = self._consts.get(spec.name)
@@ -475,7 +481,7 @@ class _MontMul(_KernelWrapper):
         a, b = a.contiguous(), b.contiguous()
         out = torch.empty_like(a)
         kernels.launch_mont_mul(self._constants(spec), a, b, out)
-        self.launches += 1
+        self._launched(spec)
         return out
 
 
@@ -488,7 +494,7 @@ class _MontRedc(_KernelWrapper):
         x = x.contiguous()
         out = torch.empty_like(x)
         kernels.launch_mont_redc(self._constants(spec), x, out)
-        self.launches += 1
+        self._launched(spec)
         return out
 
 
@@ -518,7 +524,7 @@ class _MontMulTc(_KernelWrapper):
         out = torch.empty_like(a)
         w1, w2 = self.weights(spec, a.device)
         kernels.launch_mont_mul_tc(self._constants(spec), a, b, out, w1, w2)
-        self.launches += 1
+        self._launched(spec)
         return out
 
 
@@ -537,7 +543,7 @@ class _MontMulShape(_KernelWrapper):
         a, b = a.contiguous(), b.contiguous()
         out = torch.empty_like(a)
         kernels.launch_mont_mul_shape(self._constants(spec), a, b, out, threads)
-        self.launches += 1
+        self._launched(spec)
         return out
 
 
@@ -578,6 +584,7 @@ def mul_kernel(name: str):
 def reset_launches():
     for k in KERNELS:
         k.launches = 0
+        k.launches_by_n = {}
 
 
 # ---------------------------------------------------------------------------

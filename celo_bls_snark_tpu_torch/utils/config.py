@@ -21,12 +21,22 @@ class Config:
     msm_lanes: Optional[int] = None       # Pippenger L (None = size heuristic)
     fixed_base_window: int = 8            # setup fixed-base table c
     msm_cache_bases: bool = True          # keep prover MSM bases on device
+    compat_sign_bit: int = 377            # hash-to-curve compat y-sign bit
+    # Prove-side arkworks byte-parity mode. This build's circuit is leaner
+    # than the deployed Celo constraint system (18,439 constraints per
+    # in-circuit BLS verify against the reference's 18,702,
+    # crates/bls-gadgets/src/bls.rs:401), so proofs made here verify only
+    # under keys set up here; verify-side interop is exact. True makes
+    # setup and prove fail fast instead of producing keys that are not
+    # byte-compatible with a deployed Celo ceremony.
+    ark_parity: bool = False
     profile: bool = False                 # print utils.profiling stage times
 
 
 _CONFIG: Optional[Config] = None
 
-_INT_FIELDS = {"msm_window", "msm_lanes", "fixed_base_window"}
+_INT_FIELDS = {"msm_window", "msm_lanes", "fixed_base_window", "compat_sign_bit"}
+_BOOL_FIELDS = {"profile", "msm_cache_bases", "ark_parity"}
 
 
 def _from_env(base: Config) -> Config:
@@ -37,7 +47,7 @@ def _from_env(base: Config) -> Config:
             continue
         if f.name in _INT_FIELDS:
             updates[f.name] = int(raw)
-        else:
+        elif f.name in _BOOL_FIELDS:
             updates[f.name] = raw.lower() in ("1", "true", "yes")
     return replace(base, **updates) if updates else base
 

@@ -57,7 +57,19 @@ Phases (each prints one line or more; any failure exits non-zero):
      validators, per-epoch extra_data, composite hashing on the card, c = 4,
      17-byte exponents): every epoch True, one planted bad signature flips
      exactly its epoch; seconds of hashing plus verification;
- 10. the `kernels` line and the last line: {"ok": true, "device": {...}}.
+ 10. epoch_snark: the epoch SNARK at the reference's e2e configuration
+     (crates/epoch-snark/tests/e2e.rs: 4 validators, 1 fault, 2
+     transitions, one SNARK) through snark/api.py on the card: first one
+     BW6-761 G2 fixed-base batch and G2 MSM against hostmath/bw6.py; then
+     trusted_setup and prove with device="cuda" (the launch counts set to 0
+     just before the setup and read just after the proof), the proof
+     verifies, a tampered last epoch does not, and the byte API verifies
+     the serialized key and proof; seconds per stage, the constraint count,
+     the domain, peak memory and launches per kernel and limb count. Then
+     the 2-SNARK helper on the BLS12-377 engine: setup of HashToBits(2)
+     and generate_hash_helper on the card, its proof verified against the
+     public inputs the helper statement fixes;
+ 11. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of the JAX package, and exits non-zero without
 printing a result when no card is available.
@@ -107,6 +119,7 @@ from celo_bls_snark_tpu_torch.hashers.composite import (  # noqa: E402
     crh_parameters,
 )
 from celo_bls_snark_tpu_torch.hashers.direct import DirectHasher  # noqa: E402
+from celo_bls_snark_tpu_torch.hostmath import bw6 as hbw6  # noqa: E402
 from celo_bls_snark_tpu_torch.hostmath import curves as hc  # noqa: E402
 from celo_bls_snark_tpu_torch.hostmath.params import G2_GENERATOR, R  # noqa: E402
 from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN  # noqa: E402
@@ -119,10 +132,21 @@ from celo_bls_snark_tpu_torch.ops import ntt as dntt  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_hash_verify as hash_bench  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_msm_ntt as prover  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import prof_field  # noqa: E402
-from celo_bls_snark_tpu_torch.snark.accel import DeviceAccel  # noqa: E402
+from celo_bls_snark_tpu_torch.relations.r1cs import ConstraintSystem  # noqa: E402
+from celo_bls_snark_tpu_torch.snark import api  # noqa: E402
+from celo_bls_snark_tpu_torch.snark import groth16 as g16  # noqa: E402
+from celo_bls_snark_tpu_torch.snark import serialize_bw6  # noqa: E402
+from celo_bls_snark_tpu_torch.snark.accel import DeviceAccel, get_accel  # noqa: E402
 from celo_bls_snark_tpu_torch.snark.api import BW6_761_ENGINE  # noqa: E402
+from celo_bls_snark_tpu_torch.snark.fixtures import generate_test_data  # noqa: E402
+from celo_bls_snark_tpu_torch.snark.hash_to_bits_circuit import HashToBits  # noqa: E402
 from celo_bls_snark_tpu_torch.utils import profiling  # noqa: E402
+from celo_bls_snark_tpu_torch.utils.bits import (  # noqa: E402
+    bits_le_to_bytes_le,
+    bytes_le_to_bits_le,
+)
 from celo_bls_snark_tpu_torch.utils.profiling import time_ms  # noqa: E402
+from celo_bls_snark_tpu_torch.utils.rngs import XorShiftRng  # noqa: E402
 from celo_bls_snark_tpu_torch.utils.tree import tree_leaves, tree_map  # noqa: E402
 
 DEV = torch.device("cuda:0")
@@ -436,6 +460,10 @@ def launch_counts():
     return {k.name: k.launches for k in F.KERNELS}
 
 
+def launch_counts_by_n():
+    return {k.name: dict(sorted(k.launches_by_n.items())) for k in F.KERNELS}
+
+
 def busy_profile(fn):
     """One call of fn under torch.profiler: wall time, the summed time of
     all kernels on the card and its share of the wall, kernel count, the
@@ -654,6 +682,144 @@ def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
     return launches
 
 
+def g2_route_check(n_points=64, seed=20261019):
+    """The BW6-761 G2 route of the setup and the prover on the card: a
+    fixed-base batch of G2 generator multiples and an MSM over them with a
+    cache key, against hostmath/bw6.py."""
+    accel = get_accel("bw6_761", DEV)
+    r = BW6_761_ENGINE.fr
+    rnd = random.Random(seed)
+    ks = [rnd.randrange(r) for _ in range(n_points - 1)] + [0]
+    t0 = time.perf_counter()
+    bases = accel.g2.fixed_base_batch(ks)
+    got = list(bases)
+    want = [hbw6.G2.mul(k, hbw6.G2_GENERATOR) if k else None for k in ks]
+    if got != want:
+        fail(f"epoch_snark: the BW6-761 G2 fixed-base batch differs from the "
+             f"host at lanes {[i for i in range(n_points) if got[i] != want[i]][:8]}")
+    ss = [rnd.randrange(r) for _ in ks]
+    k = sum(a * b for a, b in zip(ks, ss)) % r
+    want_msm = hbw6.G2.mul(k, hbw6.G2_GENERATOR) if k else None
+    for _ in range(2):  # the second call reads the cached bases
+        if accel.g2.msm(bases, ss, cache_key=("g2_route_check", seed)) != want_msm:
+            fail("epoch_snark: the BW6-761 G2 MSM differs from the host")
+    return {"g2_points": n_points, "g2_fixed_base_equal_host": True,
+            "g2_msm_equal_host": True, "g2_check_s": time.perf_counter() - t0}
+
+
+def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
+    """The epoch SNARK at the reference's e2e configuration through
+    snark/api.py on the card: trusted_setup, prove, verify_parsed and the
+    byte API; then the 2-SNARK helper over BLS12-377. Returns the launches
+    of setup + prove of the epoch proof and of the helper's."""
+    info = g2_route_check()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    profiling.reset()
+    # the epoch path, with the launch counts set to 0 just before the
+    # setup and read just after the proof
+    sizes = {}
+    generate_parameters = g16.generate_parameters
+
+    def sized(cs, engine, rng, accel=None):  # records the circuit's size
+        sizes.update(constraints=cs.num_constraints, instance=cs.num_instance)
+        return generate_parameters(cs, engine, rng, accel=accel)
+
+    g16.generate_parameters = sized
+    F.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        params = api.trusted_setup(n_validators, n_transitions, faults,
+                                   XorShiftRng(b"e2e-trusted-setp"), device="cuda")
+    finally:
+        g16.generate_parameters = generate_parameters
+    setup_s = time.perf_counter() - t0
+    setup_launches = launch_counts()
+    setup_stages = profiling.report()
+    profiling.reset()
+    t0 = time.perf_counter()
+    first, transitions, last = generate_test_data(n_validators, faults, n_transitions)
+    fixtures_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = api.prove(params, n_validators, first, transitions,
+                      max_transitions=n_transitions, device="cuda")
+    prove_s = time.perf_counter() - t0
+    launches = launch_counts()
+    by_n = launch_counts_by_n()
+    prove_stages = profiling.report()
+    peak = torch.cuda.max_memory_allocated()
+    if not by_n["mont_mul"].get(49) or not by_n["mont_mul"].get(25):
+        fail(f"epoch_snark: mont_mul<49> and mont_mul<25> must both launch: {by_n}")
+    require_path_kernels("epoch_snark", launches)
+    vk = params.epochs.vk
+    t0 = time.perf_counter()
+    ok = api.verify_parsed(vk, first, last, proof)
+    verify_s = time.perf_counter() - t0
+    if not ok:
+        fail("epoch_snark: the proof does not verify")
+    if api.verify_parsed(vk, first, first, proof):
+        fail("epoch_snark: the proof verifies against a tampered last epoch")
+    if not api.verify(serialize_bw6.vk_to_bytes(vk), serialize_bw6.proof_to_bytes(proof),
+                      first, last):
+        fail("epoch_snark: the byte API rejects the serialized key and proof")
+    pk = params.epochs
+    stage_s = lambda rep: {k: v["total_s"] for k, v in rep.items()}  # noqa: E731
+    line({"phase": "epoch_snark", "validators": n_validators, "faults": faults,
+          "transitions": n_transitions, "two_snark": False,
+          **sizes, "domain": len(pk.h_query) + 1,
+          "variables": len(pk.a_query),
+          "setup_s": setup_s, "fixtures_s": fixtures_s, "prove_s": prove_s,
+          "verify_s": verify_s, "setup_stage_s": stage_s(setup_stages),
+          "prove_stage_s": stage_s(prove_stages), "peak_bytes": peak,
+          "setup_launches": setup_launches, "launches": launches,
+          "launches_by_n": by_n, "ok": True, "tampered_ok": False,
+          "bytes_api_ok": True, "phases_before": list(order), **info})
+    return launches, phase_epoch_helper([t.block for t in transitions])
+
+
+def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
+    """The 2-SNARK helper proof over BLS12-377 on the card: setup of
+    HashToBits over the epoch blocks and generate_hash_helper, verified
+    against the public inputs the helper statement fixes."""
+    profiling.reset()
+    torch.cuda.reset_peak_memory_stats()
+    F.reset_launches()
+    t0 = time.perf_counter()
+    hcs = ConstraintSystem(g16.BLS12_377_ENGINE.fr, "setup")
+    HashToBits.empty(len(blocks)).generate_constraints(hcs)
+    helper_pk = g16.generate_parameters(hcs, g16.BLS12_377_ENGINE, XorShiftRng(seed),
+                                        accel=get_accel("bls12_377", DEV))
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    helper = api.generate_hash_helper(helper_pk, blocks, device="cuda")
+    prove_s = time.perf_counter() - t0
+    launches = launch_counts()
+    by_n = launch_counts_by_n()
+    if not by_n["mont_mul"].get(17) or not by_n["mont_mul"].get(25):
+        fail(f"epoch_snark helper: mont_mul<17> and mont_mul<25> must both launch: {by_n}")
+    require_path_kernels("epoch_snark helper", launches)
+    msg_bits = api.xof_input_message_bits(blocks)
+    xof_bits = []
+    for bits in msg_bits:
+        out = DirectHasher().xof(SIG_DOMAIN, bits_le_to_bytes_le(bits), 64)
+        xof_bits += bytes_le_to_bits_le(out, 512)
+    inputs = HashToBits.public_inputs(msg_bits, xof_bits)
+    engine = g16.BLS12_377_ENGINE
+    if not g16.verify_proof(helper_pk.vk, helper.proof, inputs, engine):
+        fail("epoch_snark helper: the helper proof does not verify")
+    if g16.verify_proof(helper_pk.vk, helper.proof, [inputs[0] + 1] + inputs[1:], engine):
+        fail("epoch_snark helper: the helper proof verifies a changed input")
+    line({"phase": "epoch_snark_helper", "engine": "bls12_377",
+          "epochs": len(blocks), "constraints": hcs.num_constraints,
+          "domain": len(helper_pk.h_query) + 1, "instance": len(inputs),
+          "setup_s": setup_s, "prove_s": prove_s,
+          "stage_s": {k: v["total_s"] for k, v in profiling.report().items()},
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches, "launches_by_n": by_n, "ok": True,
+          "changed_input_ok": False})
+    return launches
+
+
 def phase_shape_sweep():
     """The launch-shape sweep through its script's entry point, with the
     counts set to 0 just before and read just after."""
@@ -759,6 +925,7 @@ def main():
     by_path["prover_cios"], by_path["prover_tc"] = phase_prover()
     by_path["hash_verify"] = phase_hash_verify()
     by_path["strict_verify"] = phase_strict_verify()
+    by_path["epoch"], by_path["epoch_helper"] = phase_epoch_snark(order=list(by_path))
     out = []
     for name, per_width in rows.items():
         if name == "mont_mul_shape":

@@ -4,8 +4,9 @@ CPU.
 
 compute_h_evals gives the JAX accelerator's raw limbs and the host
 oracle's coefficients. The slice as a whole: a small circuit, synthesized
-by the JAX package's gadgets and replayed into the port's constraint
-system, is set up and proven by the port with its torch accelerator
+by the port's gadgets into the port's constraint system (and by the JAX
+package's into the JAX package's), is set up and proven by the port with
+its torch accelerator
 (device="cpu": every kernel's plain version); the proving key and the
 proof equal the JAX package's host key and proof bit for bit (same rng,
 r = s = 0, so both are deterministic) and the proof verifies, for both
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from celo_bls_snark_tpu.gadgets.vars import FpVar
+from celo_bls_snark_tpu.gadgets.vars import FpVar as JFpVar
 from celo_bls_snark_tpu.ops import curve as jdc
 from celo_bls_snark_tpu.ops import field as jf
 from celo_bls_snark_tpu.ops import msm as jmsm
@@ -28,6 +29,7 @@ from celo_bls_snark_tpu.snark import api as japi
 from celo_bls_snark_tpu.snark import groth16 as jg16
 from celo_bls_snark_tpu.utils.rngs import XorShiftRng as JXorShiftRng
 from celo_bls_snark_tpu_torch import convert
+from celo_bls_snark_tpu_torch.gadgets.vars import FpVar
 from celo_bls_snark_tpu_torch.ops import field as tf
 from celo_bls_snark_tpu_torch.ops import msm as tmsm
 from celo_bls_snark_tpu_torch.relations import r1cs as tr1cs
@@ -47,29 +49,15 @@ ENGINES = {
 SEED = b"accel-g16-test00"
 
 
-def synth(cs, x=None, w=None):
+def synth(cs, x=None, w=None, fpvar=FpVar):
     """x = w^2 and w^4 = x^2, the circuit of the JAX package's device
-    accelerator test."""
-    xv = FpVar.new_input(cs, x)
-    wv = FpVar.new_witness(cs, w)
+    accelerator test, with the gadgets of either package."""
+    xv = fpvar.new_input(cs, x)
+    wv = fpvar.new_witness(cs, w)
     wv.mul(wv).enforce_equal(xv)
     a = wv.mul(wv)
     b = a.mul(wv)
     b.mul(wv).enforce_equal(xv.mul(xv))
-
-
-def to_port_cs(jcs):
-    """Replay a synthesized JAX-package constraint system into the port's."""
-    cs = tr1cs.ConstraintSystem(jcs.p, jcs.mode)
-    cs.instance_assignment = list(jcs.instance_assignment)
-    cs.witness_assignment = list(jcs.witness_assignment)
-    cs.num_instance, cs.num_witness = jcs.num_instance, jcs.num_witness
-    cs.constraints = [
-        tr1cs.Constraint(*(tr1cs.LinearCombination(lc.terms) for lc in (c.a, c.b, c.c)),
-                         c.trace)
-        for c in jcs.constraints
-    ]
-    return cs
 
 
 def plain(obj):
@@ -117,17 +105,19 @@ def test_compute_h_evals_limbs_match_jax_and_host(name):
 def test_slice_key_and_proof_equal_jax_host_bit_for_bit(name):
     jeng, teng = ENGINES[name]
     accel = taccel.get_accel(name, "cpu")
-    jcs = jr1cs.ConstraintSystem(jeng.fr, "setup")
-    synth(jcs)
-    pk = tg16.generate_parameters(to_port_cs(jcs), teng, XorShiftRng(SEED), accel=accel)
+    cs, jcs = tr1cs.ConstraintSystem(teng.fr, "setup"), jr1cs.ConstraintSystem(jeng.fr, "setup")
+    synth(cs)
+    synth(jcs, fpvar=JFpVar)
+    pk = tg16.generate_parameters(cs, teng, XorShiftRng(SEED), accel=accel)
     jpk = jg16.generate_parameters(jcs, jeng, JXorShiftRng(SEED))
     assert plain(pk) == plain(jpk)
     assert accel.prewarm_prove(pk) == []
     w = 987654321
     x = w * w % teng.fr
-    jcs = jr1cs.ConstraintSystem(jeng.fr, "prove")
-    synth(jcs, x, w)
-    cs = to_port_cs(jcs)
+    cs, jcs = tr1cs.ConstraintSystem(teng.fr, "prove"), jr1cs.ConstraintSystem(jeng.fr, "prove")
+    synth(cs, x, w)
+    synth(jcs, x, w, fpvar=JFpVar)
+    assert cs.full_assignment() == jcs.full_assignment()
     assert cs.is_satisfied()
     proof = tg16.create_proof_no_zk(pk, cs, teng, accel=accel)
     jproof = jg16.create_proof_no_zk(jpk, jcs, jeng)
