@@ -30,10 +30,19 @@ module here has a counterpart of the same name there:
                   fixtures.py), key and proof bytes (serialize_bw6.py,
                   serialize_pk.py), matrix digests (matrix_hash.py) and
                   the public API: trusted_setup, prove, verify (api.py)
-  entry.py        the small flagship verification step
+  parallel/       the mesh on torch.distributed: process-group bring-up
+                  and the rank-sharded pairing check, sums, MSMs, four-step
+                  NTT and h-polynomial (NCCL between cards, gloo between
+                  CPU processes)
+  ffi/            the client boundary: the reference's bls-snark-sys
+                  surface in Python (api.py) and as a C ABI (c_abi/)
+  examples/       simple_signature, pop, pop_csv, constraints, proof
+  entry.py        the small flagship verification step and its multi-rank
+                  dry run
   bench.py        aggregate-verification throughput on the card
   convert.py      numpy pytrees <-> torch tensor trees
-  scripts/        benches and profiles on the card, run_e2e.py
+  scripts/        benches and profiles on the card, run_e2e.py,
+                  dryrun_multichip.py, bench_scaling.py
 
 Field batches are [n_limbs, B] int32 tensors of 16-bit limbs with one
 guard limb (R = 2^(16 n)); values stay lazy between multiplies within

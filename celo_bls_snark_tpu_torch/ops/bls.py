@@ -7,6 +7,7 @@ Most of these functions consume message HASH POINTS, as the reference's
 messages on the card first (ops/hash_to_g1.py), as `batch_verify` does.
 """
 
+import numpy as np
 import torch
 
 from ..hostmath import curves as hostcurves
@@ -233,6 +234,15 @@ def aggregate_g2_device(pubkeys_jac):
 def aggregate_g1_device(sigs_jac):
     """Sum of a projective G1 batch -> batch-1 point (Signature::aggregate)."""
     return dc.g1.msum(sigs_jac)
+
+
+def scalars_to_bits(scalars, device, nbits=253):
+    """Python ints -> [nbits, B] int32 MSB-first bit tensor on `device`."""
+    a8 = np.frombuffer(
+        b"".join(int(k).to_bytes((nbits + 7) // 8, "big") for k in scalars),
+        dtype=np.uint8).reshape(len(scalars), -1)
+    bits = np.unpackbits(a8, axis=1)[:, -nbits:]
+    return torch.from_numpy(bits.T.astype(np.int32)).to(device)
 
 
 def msm_g1_device(bits, points_jac):

@@ -31,6 +31,7 @@ import time
 
 import torch
 
+from ..entry import chain_points, host_h_poly
 from ..ops import field as F
 from ..ops import msm as dmsm
 from ..snark import groth16 as g16
@@ -67,14 +68,6 @@ class Meter:
         self.out["launches"] = {k.name: k.launches for k in F.KERNELS}
 
 
-def gen_chain_points(host_curve, gen, a, n):
-    """P_i = (a+i)*gen via one mul + n-1 affine chain adds (host)."""
-    pts = [host_curve.mul(a, gen)]
-    for _ in range(n - 1):
-        pts.append(host_curve.add(pts[-1], gen))
-    return pts
-
-
 def fixed_base_stage(accel, engine, B, seed, sample=4):
     """B random scalars a_i -> the PointVec of a_i G through the device
     fixed-base batch; `sample` of them held against the host."""
@@ -91,11 +84,16 @@ def fixed_base_stage(accel, engine, B, seed, sample=4):
                        "ok": got == want, **m.out}
 
 
-def msm_stage(accel, engine, bases, ks, seed):
-    """sum_i s_i P_i with P_i = ks[i] G, against one host scalar mul."""
+def msm_scalars(engine, B, seed):
     rnd = random.Random(seed)
+    return [rnd.randrange(engine.fr) for _ in range(B)]
+
+
+def msm_stage(accel, engine, bases, ks, seed, ss=None):
+    """sum_i s_i P_i with P_i = ks[i] G, against one host scalar mul
+    (ss: the scalars, by default msm_scalars(engine, len(ks), seed))."""
     r = engine.fr
-    ss = [rnd.randrange(r) for _ in range(len(ks))]
+    ss = ss if ss is not None else msm_scalars(engine, len(ks), seed)
     with Meter(accel.device) as m:
         got = accel.g1.msm(bases, ss)
     k = sum(a * s for a, s in zip(ks, ss)) % r
@@ -119,7 +117,7 @@ def _interpolants_at(evals_list, z, omega, d, r):
             for ev in evals_list]
 
 
-def _horner(coeffs, z, r):
+def horner(coeffs, z, r):
     acc = 0
     for cf in reversed(coeffs):
         acc = (acc * z + cf) % r
@@ -135,11 +133,11 @@ def h_inputs(engine, d, seed):
     return a_e, b_e, [a * b % r for a, b in zip(a_e, b_e)]
 
 
-def h_stage(accel, engine, d, seed, points=2):
+def h_stage(accel, engine, d, seed, points=2, evals=None):
     """compute_h_evals at size d, checked by h(z) t(z) = A(z) B(z) - C(z)
-    at `points` random z."""
+    at `points` random z (evals: by default h_inputs(engine, d, seed))."""
     r = engine.fr
-    evals = h_inputs(engine, d, seed)
+    evals = evals if evals is not None else h_inputs(engine, d, seed)
     with Meter(accel.device) as m:
         h = accel.compute_h_evals(*evals, d, engine.fr_generator)
     coeffs = h.to_ints()
@@ -149,7 +147,7 @@ def h_stage(accel, engine, d, seed, points=2):
     for _ in range(points):
         z = rnd.randrange(2, r)
         az, bz, cz = _interpolants_at(evals, z, omega, d, r)
-        ok &= _horner(coeffs, z, r) * (pow(z, d, r) - 1) % r == (az * bz - cz) % r
+        ok &= horner(coeffs, z, r) * (pow(z, d, r) - 1) % r == (az * bz - cz) % r
     return h, {"stage": "h_poly", "d": d, "points": points, "ok": bool(ok), **m.out}
 
 
@@ -157,34 +155,23 @@ def h_dense(accel, engine, d, seed):
     """compute_h_evals on arbitrary evaluations at a small d against the
     host fft pipeline, coefficient for coefficient."""
     rnd = random.Random(seed)
-    r, g = engine.fr, engine.fr_generator
-    evals = [[rnd.randrange(r) for _ in range(d)] for _ in range(3)]
-    got = accel.compute_h_evals(*evals, d, g).to_ints()
-    omega = g16._root_of_unity(engine, d)
-    gpow = [1] * d
-    for i in range(1, d):
-        gpow[i] = gpow[i - 1] * g % r
-    ac, bc, cc = (
-        g16.fft([c * s % r for c, s in zip(g16.ifft(e, omega, r), gpow)], omega, r)
-        for e in evals
-    )
-    tinv = pow((pow(g, d, r) - 1) % r, -1, r)
-    hs = g16.ifft([(x * y - z) % r * tinv % r for x, y, z in zip(ac, bc, cc)],
-                  omega, r)
-    ginv = pow(g, -1, r)
-    gipow = [1] * d
-    for i in range(1, d):
-        gipow[i] = gipow[i - 1] * ginv % r
-    want = [c * s % r for c, s in zip(hs, gipow)][: d - 1]
+    evals = [[rnd.randrange(engine.fr) for _ in range(d)] for _ in range(3)]
+    got = accel.compute_h_evals(*evals, d, engine.fr_generator).to_ints()
+    want = host_h_poly(engine, *evals, d, engine.fr_generator)
     return {"stage": "h_poly_dense", "d": d, "ok": got == want}
 
 
-def ntt_stage(nttops, N, seed, device):
-    """ntt then inverse ntt at size N: round trip on the head and tail,
-    Horner spot checks of the forward transform."""
+def ntt_values(nttops, N, seed):
     rnd = random.Random(seed)
+    return [rnd.randrange(nttops.r) for _ in range(N)]
+
+
+def ntt_stage(nttops, N, seed, device, vals=None):
+    """ntt then inverse ntt at size N: round trip on the head and tail,
+    Horner spot checks of the forward transform (vals: by default
+    ntt_values(nttops, N, seed))."""
     spec, r = nttops.spec, nttops.r
-    vals = [rnd.randrange(r) for _ in range(N)]
+    vals = vals if vals is not None else ntt_values(nttops, N, seed)
     x = nttops.f.from_raw(spec.pack_raw(vals, device))
     with Meter(device) as m:
         y = nttops.ntt(x)
@@ -192,7 +179,7 @@ def ntt_stage(nttops, N, seed, device):
     ok = spec.unpack(back[:, :64]) == vals[:64] and spec.unpack(back[:, -64:]) == vals[-64:]
     w = nttops.root_fn(N)
     for j in (0, 1, N // 2 + 3):
-        ok &= spec.unpack(y[:, j : j + 1])[0] == _horner(vals, pow(w, j, r), r)
+        ok &= spec.unpack(y[:, j : j + 1])[0] == horner(vals, pow(w, j, r), r)
     return {"stage": "ntt_roundtrip", "field": spec.name, "N": N, "ok": bool(ok), **m.out}
 
 
@@ -204,7 +191,7 @@ def run(lg=20, engine_name="bw6_761", device="cuda", chain=False, seed=20261016)
     if chain:
         a = random.Random(seed).randrange(1, 1 << 62)
         ks = [a + i for i in range(B)]
-        bases = gen_chain_points(engine.g1, engine.g1_gen, a, B)
+        bases = chain_points(engine.g1, engine.g1_gen, a, B)
     else:
         ks, bases, res = fixed_base_stage(accel, engine, B, seed)
         yield res

@@ -11,12 +11,17 @@ setup.rs:87-99); here the same stages run on the card:
   - compute_h_evals          -> the h(X) = (A(X)B(X) - C(X))/t(X) coset
                                 NTT pipeline on the device (ops/ntt.py)
 
+set_mesh routes the MSM and the h-polynomial over a multi-rank mesh
+(parallel/mesh.py), under the JAX package's conditions.
+
 One DeviceAccel instance per pairing engine ("bls12_377", "bw6_761" — for
 BW6-761 both G1 and G2 live over Fq761; ops/curve.py::bw6_g1/bw6_g2 differ
 in the curve constant b). Passed as the optional `accel` argument of
 snark/groth16.py entry points. It runs on the card unless the caller asks
 for device="cpu", where every kernel's plain version runs.
 """
+
+import warnings
 
 import numpy as np
 import torch
@@ -33,8 +38,9 @@ from ..ops import kernels
 from ..ops import msm as dmsm
 from ..ops import ntt as dntt
 from ..ops.field import FQ, FQ761, FR, fq, fq761, fr
+from ..parallel import mesh as pmesh
 from ..utils.config import get_config
-from ..utils.devices import require_device
+from ..utils.devices import require_device, resolve_device
 from ..utils.profiling import device_sync, stage
 from .api import BW6_761_ENGINE
 from .groth16 import BLS12_377_ENGINE
@@ -59,20 +65,18 @@ class _Group:
         self._table = None
 
     def msm(self, bases, scalars, c=None, L=None, cache_key=None):
+        """sum_i scalars[i] bases[i] as a host point: sharded over the
+        owner's mesh when it has more than one rank and at least 4 points a
+        rank (the JAX package's condition), else on this card alone."""
         key = (self.key, cache_key) if cache_key is not None else None
-        raw = isinstance(scalars, dmsm.RawScalarVec)
-        return dmsm.msm_pippenger(
-            bases if isinstance(bases, dc.PointVec) else list(bases),
-            scalars if raw else [int(s) for s in scalars],
-            curve=self.curve,
-            nbits=self.nbits,
-            c=c,
-            L=L,
-            pack_fn=self.pack_fn,
-            unpack_fn=self.unpack_fn,
-            cache_key=key,
-            device=self.owner.device,
-        )
+        bases = bases if isinstance(bases, dc.PointVec) else list(bases)
+        if not isinstance(scalars, dmsm.RawScalarVec):
+            scalars = [int(s) for s in scalars]
+        kw = dict(curve=self.curve, nbits=self.nbits, c=c, L=L,
+                  pack_fn=self.pack_fn, unpack_fn=self.unpack_fn, cache_key=key)
+        if self.owner._routes(len(bases) >= 4 * self.owner.mesh_size, "msm"):
+            return pmesh.sharded_msm_pippenger(self.owner.mesh, bases, scalars, **kw)
+        return dmsm.msm_pippenger(bases, scalars, device=self.owner.device, **kw)
 
     def table(self):
         """The fixed-base window table on the device, built once."""
@@ -161,15 +165,31 @@ class DeviceAccel:
         return []
 
     def set_mesh(self, mesh):
-        """The multi-card routes (the JAX package's parallel/mesh.py) are
-        not ported: only None, the single-card route, is accepted. A mesh
-        that was asked for is never served by one card in silence."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "set_mesh: the mesh-sharded MSM and NTT are not ported; "
-                "pass None for the single-card route"
-            )
-        self.mesh = None
+        """Route the prover's MSM and h-polynomial stages through the
+        rank-sharded functions of parallel/mesh.py when `mesh` has more
+        than one rank: the multi-card form of arkworks' rayon MSM/FFT
+        parallelism (SURVEY.md section 2.5 row 4). None, or a mesh of one
+        rank, keeps the single-card route. The mesh must compute on this
+        accelerator's device."""
+        if mesh is not None and resolve_device(mesh.device) != resolve_device(self.device):
+            raise ValueError(f"set_mesh: the mesh computes on {mesh.device}, "
+                             f"this accelerator on {self.device}")
+        self.mesh = mesh
+
+    @property
+    def mesh_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _routes(self, fits: bool, what: str) -> bool:
+        """Whether a stage goes through the mesh: more than one rank and a
+        problem that `fits` the sharding. A multi-rank mesh that cannot
+        take the stage says so, and every rank runs it whole."""
+        if self.mesh_size == 1:
+            return False
+        if not fits:
+            warnings.warn(f"{what}: this size does not shard over "
+                          f"{self.mesh_size} ranks; every rank runs it whole")
+        return fits
 
     def _h_tables(self, d: int, g: int):
         nttops, dev, r = self.nttops, self.device, self.r
@@ -190,6 +210,13 @@ class DeviceAccel:
         r = self.r
         spec, f, nttops = self.fspec, self.fops, self.nttops
         dev = self.device
+        # four-step split: N1 % D == 0 and N2 % D == 0
+        if self._routes(d % (self.mesh_size ** 2) == 0, "h_poly"):
+            with stage("h_poly.pack"):
+                raws = tuple(spec.pack_raw(e, dev) for e in (a_evals, b_evals, c_evals))
+            with stage("h_poly.sharded"):
+                h_raw = pmesh.sharded_compute_h(self.mesh, nttops, *raws, d, g)
+            return dmsm.RawScalarVec(h_raw.astype(np.uint16)[..., : d - 1], spec)
         t_c_inv = pow((pow(g, d, r) - 1) % r, -1, r)
         with stage("h_poly.tables"):
             m_fwd, m_inv, sc_g, sc_ginv = self._h_tables(d, g)

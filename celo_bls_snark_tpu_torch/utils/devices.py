@@ -12,3 +12,11 @@ def require_device(device) -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain versions"
         )
     return device
+
+
+def resolve_device(device) -> torch.device:
+    """`device` with its index filled in: "cuda" names the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -41,7 +41,18 @@ Phases (each prints one line or more; any failure exits non-zero):
   7. the same MSM and h-polynomial under mul_kernel("tc"): the same point
      and the same limbs, every multiply through mont_mul_tc; then one
      profiled MSM (under mont_mul) for the card's busy share;
-  8. hash_verify: hashing-included batch verification at the JAX hash
+  8. mesh: parallel/ at world size 1 on a real NCCL group (init_distributed
+     with a file:// store), on the prover phase's own 2^20 inputs and
+     results: sharded_compute_h at d = 2^20 over BW6-Fr against
+     compute_h_evals' limbs, the four-step NTT round trip at 2^20 over both
+     scalar fields against the radix-2 NTT (timed beside it) and the host
+     at sampled lanes, the sharded Pippenger MSM against the single card's
+     point, the sharded signature sum and pairing check on the entry
+     inputs and on 1,024 pairs (True, and False when tampered),
+     entry.dryrun_multichip, and a size-1 set_mesh that leaves the
+     accelerator's launches unchanged; seconds per function and launches
+     by limb count;
+  9. hash_verify: hashing-included batch verification at the JAX hash
      bench's configuration (16,384 messages, 100 validators, 24 counters,
      compat mode) through ops/bls.py::batch_verify_messages_device, for the
      DirectHasher and the composite CRH: signatures (sum sk) H built on the
@@ -52,12 +63,12 @@ Phases (each prints one line or more; any failure exits non-zero):
      False; 2 timed verifications give the metric line (scripts/
      bench_hash_verify.py's, with seconds per stage); one profiled
      DirectHasher verification gives the card's busy share;
-  9. strict_verify: strict per-epoch batch verification at
+ 10. strict_verify: strict per-epoch batch verification at
      scripts/bench_strategies.py's configuration (300 epochs x 20
      validators, per-epoch extra_data, composite hashing on the card, c = 4,
      17-byte exponents): every epoch True, one planted bad signature flips
      exactly its epoch; seconds of hashing plus verification;
- 10. epoch_snark: the epoch SNARK at the reference's e2e configuration
+ 11. epoch_snark: the epoch SNARK at the reference's e2e configuration
      (crates/epoch-snark/tests/e2e.rs: 4 validators, 1 fault, 2
      transitions, one SNARK) through snark/api.py on the card: first one
      BW6-761 G2 fixed-base batch and G2 MSM against hostmath/bw6.py; then
@@ -69,7 +80,7 @@ Phases (each prints one line or more; any failure exits non-zero):
      the 2-SNARK helper on the BLS12-377 engine: setup of HashToBits(2)
      and generate_hash_helper on the card, its proof verified against the
      public inputs the helper statement fixes;
- 11. the `kernels` line and the last line: {"ok": true, "device": {...}}.
+ 12. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of the JAX package, and exits non-zero without
 printing a result when no card is available.
@@ -121,7 +132,7 @@ from celo_bls_snark_tpu_torch.hashers.composite import (  # noqa: E402
 from celo_bls_snark_tpu_torch.hashers.direct import DirectHasher  # noqa: E402
 from celo_bls_snark_tpu_torch.hostmath import bw6 as hbw6  # noqa: E402
 from celo_bls_snark_tpu_torch.hostmath import curves as hc  # noqa: E402
-from celo_bls_snark_tpu_torch.hostmath.params import G2_GENERATOR, R  # noqa: E402
+from celo_bls_snark_tpu_torch.hostmath.params import G1_GENERATOR, G2_GENERATOR, R  # noqa: E402
 from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import curve as dc  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import field as F  # noqa: E402
@@ -129,6 +140,8 @@ from celo_bls_snark_tpu_torch.ops import hash_to_g1  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import kernels  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import msm  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import ntt as dntt  # noqa: E402
+from celo_bls_snark_tpu_torch.parallel import distributed as pdist  # noqa: E402
+from celo_bls_snark_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_hash_verify as hash_bench  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_msm_ntt as prover  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import prof_field  # noqa: E402
@@ -536,7 +549,7 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
           "timed_verifications": n_iter,
           "p_aff_equal_host": True, "tampered_ok": False})
     line(metric)
-    return launches
+    return launches, (sigs, hashes, apk)
 
 
 def require_path_kernels(path, launches):
@@ -875,16 +888,20 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
     engine = BW6_761_ENGINE
     accel = DeviceAccel("bw6_761", DEV)
     B, d = 1 << lg_msm, 1 << lg_ntt
+    ss = prover.msm_scalars(engine, B, seed + 1)
+    evals = prover.h_inputs(engine, d, seed + 2)
+    vals = prover.ntt_values(dntt.ntt_fr, d, seed + 4)
     cios = {}
     with F.mul_kernel("cios"):
         ks, bases, res = prover.fixed_base_stage(accel, engine, B, seed)
         results = [res]
-        point, res = prover.msm_stage(accel, engine, bases, ks, seed + 1)
+        point, res = prover.msm_stage(accel, engine, bases, ks, seed + 1, ss)
         results.append(res)
-        h, res = prover.h_stage(accel, engine, d, seed + 2)
+        h, res = prover.h_stage(accel, engine, d, seed + 2, evals=evals)
         results.append(res)
+        h_stage_s = res["stage_s"]
         results.append(prover.h_dense(accel, engine, 1 << 12, seed + 3))
-        results.append(prover.ntt_stage(dntt.ntt_fr, d, seed + 4, DEV))
+        results.append(prover.ntt_stage(dntt.ntt_fr, d, seed + 4, DEV, vals))
         for res in results:
             line({"phase": "prover", "mul": "cios", **res})
             if not res["ok"]:
@@ -894,8 +911,8 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
             fail(f"prover path: unexpected launch counts {cios}")
     tc = {}
     with F.mul_kernel("tc"):
-        point_tc, res = prover.msm_stage(accel, engine, bases, ks, seed + 1)
-        h_tc, res_h = prover.h_stage(accel, engine, d, seed + 2, points=0)
+        point_tc, res = prover.msm_stage(accel, engine, bases, ks, seed + 1, ss)
+        h_tc, res_h = prover.h_stage(accel, engine, d, seed + 2, points=0, evals=evals)
         for res in (res, res_h):
             line({"phase": "prover", "mul": "tc", **res})
             add_launches(tc, res["launches"])
@@ -914,15 +931,171 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
     line({"phase": "prover_path", "msm_points": B, "h_domain": d,
           "launches_cios": cios, "launches_tc": tc,
           "msm_equal_host": True, "tc_equal_cios": True})
-    return cios, tc
+    state = {"bases": bases, "scalars": ss, "point": point, "evals": evals,
+             "h": h, "h_stage_s": h_stage_s, "d": d, "ntt_fr_values": vals}
+    return cios, tc, state
+
+
+def card_s(fn):
+    """fn() and its seconds between two synchronizations of the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def raw_limbs(nttops, x):
+    """Canonical raw limbs of a Montgomery batch, on the host."""
+    return nttops.f.to_raw(x).cpu().numpy()
+
+
+def mesh_pairings(mesh, main_inputs):
+    """The sharded signature sum and pairing check on the entry inputs (8
+    messages: 9 pairs) and on 1,024 pairs from the verification path's
+    inputs (1,023 signatures, hashes and the committee key), each honest
+    and with its first signature tampered."""
+    out = {}
+    negg2 = bench.dbls.neg_g2_gen_affine(DEV)
+    sig8, hashes8, apk8 = port_entry.example_inputs(device=DEV)
+    sigs, hashes, apk = main_inputs
+    k = min(1023, sigs[0].shape[-1])
+    sig1k = bench.dbls.cat_lanes(tree_map(lambda x: x[:, :k], sigs), dc.g1_pack([None], DEV))
+    hashes1k = dc.g1.to_affine(tree_map(lambda x: x[:, :k], hashes))
+    apk1k = tree_map(lambda x: x.expand(x.shape[0], k), apk)
+    for name, sig, h_aff, apk_aff in (("entry_9_pairs", sig8, hashes8, apk8),
+                                      ("batch_1024_pairs", sig1k, hashes1k, apk1k)):
+        for tampered in (False, True):
+            s = tamper_first_lane(sig) if tampered else sig
+            asig = dc.g1.to_affine(pmesh.sharded_msum_g1(mesh, s))
+            p = bench.dbls.cat_lanes(asig, h_aff)
+            q = bench.dbls.cat_lanes(negg2, apk_aff)
+            out[name + ("_tampered" if tampered else "")] = bool(
+                pmesh.sharded_pairing_check(mesh, p, q)[0])
+    return out
+
+
+def set_mesh_check(mesh, seed):
+    """A size-1 set_mesh keeps DeviceAccel on the single-card route: the
+    h-polynomial at 2^12 and an MSM of 4,096 points give the same results
+    and the same launches per kernel and limb count with and without it."""
+    accel = DeviceAccel("bls12_377", DEV)
+    rnd = random.Random(seed)
+    d = 1 << 12
+    evals = [[rnd.randrange(R) for _ in range(d)] for _ in range(3)]
+    pts = port_entry.chain_points(hc.G1, G1_GENERATOR, 3, d)
+    sc = [rnd.randrange(R) for _ in pts]
+    runs = []
+    try:
+        for m in (None, mesh, None):
+            accel.set_mesh(m)
+            F.reset_launches()
+            h = accel.compute_h_evals(*evals, d, g16.BLS12_377_ENGINE.fr_generator)
+            pt = accel.g1.msm(pts, sc)
+            runs.append((launch_counts_by_n(), h.limbs, pt))
+    finally:
+        accel.set_mesh(None)
+    same = all(r[0] == runs[0][0] and (r[1] == runs[0][1]).all() and r[2] == runs[0][2]
+               for r in runs)
+    return same, runs[1][0]
+
+
+def phase_mesh(state, main_inputs, seed=20261020):
+    """The mesh (parallel/) at world size 1 on a real NCCL group, at the
+    prover's width on the prover phase's own inputs and results. With the
+    counts set to 0 just before and read just after: sharded_compute_h at
+    d = 2^20 over BW6-Fr, the four-step NTT round trip at 2^20 over both
+    scalar fields, the sharded Pippenger MSM over the prover's 2^20 BW6-761
+    bases, the sharded sum and pairing checks, entry.dryrun_multichip.
+    Then the checks: the h limbs equal compute_h_evals', the NTTs the
+    radix-2 NTT's (timed beside them) and the host's Horner values, the
+    MSM point the single card's; and a size-1 set_mesh leaves the
+    accelerator's launches unchanged. Returns the launches of the run."""
+    import tempfile
+
+    d, evals = state["d"], state["evals"]
+    secs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pdist.init_distributed(f"file://{tmp}/store", 1, 0, device=DEV)
+        try:
+            mesh = pdist.global_mesh()
+            backend = torch.distributed.get_backend()
+            want = "nccl" if DEV.type == "cuda" else "gloo"
+            if (mesh.size, mesh.rank, mesh.device, backend) != (1, 0, DEV, want):
+                fail(f"mesh: expected one {want} rank on {DEV}, got {mesh} on {backend}")
+            secs["init_distributed"] = time.perf_counter() - t0
+            raws = [F.FQ.pack_raw(e, DEV) for e in evals]
+            vals_fr = state["ntt_fr_values"]
+            inputs = {"fr253": (dntt.ntt_fr, F.FR.pack_raw(vals_fr, DEV), vals_fr),
+                      "fq377": (dntt.ntt_bw6, raws[0], evals[0])}
+            xs = {k: ops.f.from_raw(raw) for k, (ops, raw, _) in inputs.items()}
+            torch.cuda.synchronize()
+            # the mesh path, counts set to 0 just before and read just after
+            F.reset_launches()
+            # the first call builds the four-step twiddles; the second is warm
+            for key in ("sharded_compute_h", "sharded_compute_h_warm"):
+                h_raw, secs[key] = card_s(lambda: pmesh.sharded_compute_h(
+                    mesh, dntt.ntt_bw6, *raws, d, BW6_761_ENGINE.fr_generator))
+            fwd, back = {}, {}
+            for k, (ops, _, _) in inputs.items():
+                fwd[k], secs[f"four_step_ntt_{k}"] = card_s(
+                    lambda: pmesh.sharded_ntt(mesh, xs[k], ops))
+                back[k], secs[f"four_step_intt_{k}"] = card_s(
+                    lambda: pmesh.sharded_ntt(mesh, fwd[k], ops, inverse=True))
+            point, secs["sharded_msm_pippenger"] = card_s(lambda: pmesh.sharded_msm_pippenger(
+                mesh, state["bases"], state["scalars"], curve=dc.bw6_g1, nbits=377))
+            verdicts, secs["pairing_checks"] = card_s(lambda: mesh_pairings(mesh, main_inputs))
+            _, secs["dryrun_multichip"] = card_s(lambda: port_entry.dryrun_multichip(mesh))
+            launches, by_n = launch_counts(), launch_counts_by_n()
+            require_path_kernels("mesh", launches)
+            same_route, route_launches = set_mesh_check(mesh, seed)
+        finally:
+            pdist.shutdown()
+    if not (h_raw.astype(np.uint16)[:, : d - 1] == state["h"].limbs).all():
+        fail("mesh: sharded_compute_h differs from compute_h_evals at 2^20")
+    ntt_rows = {}
+    for k, (ops, raw, vals) in inputs.items():
+        ref, t_radix2 = card_s(lambda: ops.ntt(xs[k]))
+        if not (raw_limbs(ops, fwd[k]) == raw_limbs(ops, ref)).all():
+            fail(f"mesh: the four-step NTT over {k} differs from the radix-2 NTT")
+        if not (raw_limbs(ops, back[k]) == raw.cpu().numpy()).all():
+            fail(f"mesh: the four-step NTT round trip over {k} lost its input")
+        w = ops.root_fn(d)
+        for j in (1, d // 2 + 3):
+            if ops.spec.unpack(fwd[k][:, j:j + 1])[0] != prover.horner(vals, pow(w, j, ops.r), ops.r):
+                fail(f"mesh: the four-step NTT over {k} differs from the host at lane {j}")
+        ntt_rows[k] = {"four_step_s": secs[f"four_step_ntt_{k}"], "radix2_s": t_radix2,
+                       "four_step_inverse_s": secs[f"four_step_intt_{k}"]}
+    if point != state["point"]:
+        fail("mesh: the sharded Pippenger MSM differs from the single card's")
+    want = {"entry_9_pairs": True, "entry_9_pairs_tampered": False,
+            "batch_1024_pairs": True, "batch_1024_pairs_tampered": False}
+    if verdicts != want:
+        fail(f"mesh: pairing verdicts {verdicts}, expected {want}")
+    if not same_route:
+        fail("mesh: a size-1 set_mesh changed the accelerator's route")
+    line({"phase": "mesh", "world_size": 1, "backend": backend, "device": str(DEV),
+          "d": d, "seconds": secs, "ntt_by_field": ntt_rows,
+          "h_poly_single_card_s": state["h_stage_s"],
+          "launches": launches, "launches_by_n": by_n,
+          "h_equal_compute_h_evals": True, "ntt_equal_radix2_and_host": True,
+          "msm_equal_single_card": True, "verdicts": verdicts,
+          "dryrun_multichip": True, "size1_set_mesh_launches": route_launches,
+          "size1_set_mesh_same_route": True})
+    return launches
 
 
 def main():
     smi = phase_device()
     rows, worst = phase_kernels()
     phase_entry()
-    by_path = {"verify": phase_main(), "shape_sweep": phase_shape_sweep()}
-    by_path["prover_cios"], by_path["prover_tc"] = phase_prover()
+    by_path = {}
+    by_path["verify"], main_inputs = phase_main()
+    by_path["shape_sweep"] = phase_shape_sweep()
+    by_path["prover_cios"], by_path["prover_tc"], prover_state = phase_prover()
+    by_path["mesh"] = phase_mesh(prover_state, main_inputs)
+    del prover_state, main_inputs
     by_path["hash_verify"] = phase_hash_verify()
     by_path["strict_verify"] = phase_strict_verify()
     by_path["epoch"], by_path["epoch_helper"] = phase_epoch_snark(order=list(by_path))

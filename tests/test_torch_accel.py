@@ -148,8 +148,13 @@ def test_accel_is_cached_and_takes_no_mesh():
     assert taccel.get_accel("bw6_761", "cpu") is accel
     assert accel.device.type == "cpu" and accel.g2.key == "bw6-g2"
     accel.set_mesh(None)
-    with pytest.raises(NotImplementedError):
-        accel.set_mesh(object())
+    # the mesh routes (parallel/mesh.py) take a mesh on the accelerator's
+    # own device only
+    from celo_bls_snark_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="set_mesh"):
+        accel.set_mesh(Mesh(None, 0, 2, torch.device("cuda", 0)))
+    assert accel.mesh is None
     with pytest.raises(ValueError):
         taccel.DeviceAccel("bn254", "cpu")
 
