@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from .ops.curve import PointVec
-from .ops.msm import RawScalarVec
+from .ops.msm import RawScalarVec, plan_to_device
 from .utils.tree import tree_map
 
 
@@ -52,9 +52,7 @@ def raw_scalars_to_numpy(sv: RawScalarVec) -> np.ndarray:
 def plan_from_numpy(perm, lin, lane, valid, device):
     """plan_msm's arrays -> index tensors on `device` as ops/msm.py's
     device code reads them (int64 indices, bool mask)."""
-    idx = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device, torch.int64)
-                for a in (perm, lin, lane))
-    return (*idx, torch.from_numpy(np.ascontiguousarray(valid)).to(device))
+    return plan_to_device(perm, lin, lane, valid, device)
 
 
 def plan_to_numpy(perm, lin, lane, valid):

@@ -81,6 +81,20 @@ def _param_h0(digest_size, fanout, depth, leaf_size, node_offset, person):
     ]
 
 
+_H0 = {}
+
+
+def _h0_column(words, device) -> torch.Tensor:
+    """Initial state words as an int64 [8, 1] tensor on `device`, cached
+    per parameter block: a CUDA graph takes no host data, so the state is
+    copied to the card once, outside any capture."""
+    key = (tuple(words), torch.device(device))
+    h0 = _H0.get(key)
+    if h0 is None:
+        h0 = _H0[key] = torch.tensor(words, dtype=torch.int64, device=device)[:, None]
+    return h0
+
+
 def pack_messages(messages) -> np.ndarray:
     """Equal-length byte strings -> uint32 word array [16 * nblocks, B]
     (zero-padded to whole 64-byte blocks)."""
@@ -111,7 +125,7 @@ def blake2s_batch(words, msg_len, digest_size=32, fanout=1, depth=1,
     little-endian concatenation."""
     B = words.shape[1]
     h0 = _param_h0(digest_size, fanout, depth, leaf_size, node_offset, person)
-    h = torch.tensor(h0, dtype=torch.int64, device=words.device)[:, None].expand(8, B)
+    h = _h0_column(h0, words.device).expand(8, B)
     nblocks = max(1, (msg_len + 63) // 64)
     if words.shape[0] != 16 * nblocks:
         raise ValueError(f"{words.shape[0]} words for {nblocks} blocks")

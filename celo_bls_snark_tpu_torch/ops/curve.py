@@ -25,6 +25,7 @@ import torch
 from ..hostmath import fp2
 from ..hostmath.params import G2_B_C1 as _G2_B_C1
 from ..hostmath.params import P
+from ..utils import aotcache
 from ..utils.tree import tree_leaves, tree_map
 from .field import FQ, fq, fq761, ops_for
 from . import tower as tw
@@ -93,6 +94,23 @@ class _Fq761Wrap(_FqWrap):
     @staticmethod
     def smul(k, a):
         return fq761.mul_small(a, k)
+
+
+_CONST_BITS = {}
+
+
+def _const_bits(k: int, device) -> torch.Tensor:
+    """The bits of k, MSB first, as an int32 [nbits] tensor on `device`,
+    cached: a graph takes no host data, so scalar_mul_const's bits are
+    copied to the card once, outside any capture."""
+    key = (k, torch.device(device))
+    bits = _CONST_BITS.get(key)
+    if bits is None:
+        nb = max(1, k.bit_length())
+        bits = _CONST_BITS[key] = torch.tensor(
+            [(k >> (nb - 1 - i)) & 1 for i in range(nb)], dtype=torch.int32,
+            device=device)
+    return bits
 
 
 def make_curve_ops(F, b3_mul):
@@ -216,13 +234,9 @@ def make_curve_ops(F, b3_mul):
     def scalar_mul_const(k: int, pt):
         """Multiply every lane by the same scalar (the same double, add and
         select per bit as scalar_mul_bits)."""
-        nb = max(1, k.bit_length())
         x0 = tree_leaves(pt[0])[0]
-        bits = torch.tensor(
-            [(k >> (nb - 1 - i)) & 1 for i in range(nb)], dtype=torch.int32,
-            device=x0.device,
-        )
-        bits = bits[:, None].expand(nb, *x0.shape[1:])
+        bits = _const_bits(k, x0.device)
+        bits = bits[:, None].expand(bits.shape[0], *x0.shape[1:])
         return scalar_mul_bits(bits, pt)
 
     def msum_groups(p, groups: int = 1, fold_lanes: int = 128):
@@ -506,9 +520,9 @@ class PointVec:
 
     def device_montgomery(self, device, pad_to=None):
         """Affine tree on `device` (Montgomery int32 limbs) shaped like the
-        group's pack_fn output: one copy of uint16 limbs and one from_raw
-        multiply on the device."""
-        fops = ops_for(self.spec)
+        group's pack_fn output: one copy of the limbs to the card, then
+        from_raw and reduce_2p as one CUDA graph per shape
+        (pv_fromraw_<field>)."""
         B0 = self.leaves[0].shape[-1]
         B = pad_to or B0
         arrs = [
@@ -516,10 +530,13 @@ class PointVec:
             for l in self.leaves
         ]
         cat = np.concatenate(arrs, axis=-1).astype(np.int32)
+        fops = ops_for(self.spec)
         # reduce_2p: from_raw output is < 2p, so a zero (infinity)
         # coordinate can come back as exactly p, whose nonzero limbs
         # would defeat madd's all-zero-limb infinity test
-        dev = fops.reduce_2p(fops.from_raw(torch.from_numpy(cat).to(device)))
+        fn = aotcache.jit(f"pv_fromraw_{self.spec.name}",
+                          lambda x: fops.reduce_2p(fops.from_raw(x)), fops)
+        dev = fn(torch.from_numpy(cat).to(device))
         parts = [dev[..., i * B : (i + 1) * B] for i in range(len(self.leaves))]
         return self._rebuild(parts)
 
@@ -527,13 +544,18 @@ class PointVec:
 _AFFINE_RAW = {}
 
 
-def make_affine_raw(curve, fops, host_inv, template):
+def make_affine_raw(curve, fops, host_inv, template, tag="affine"):
     """Device projective batch -> PointVec, with ONE host modular inverse.
 
     Montgomery batch inversion on the device: Hillis-Steele inclusive
     prefix/suffix products of the (infinity-masked) Z column, every round
     one full-width field multiply, then inv(z_i) = P_{i-1} * S_{i+1} * T^-1
     where only T^-1 crosses to the host (a handful of bytes).
+
+    Two device programs, as the JAX package's two executables, each one
+    CUDA graph per shape: aff1_<tag> (the products and T's raw limbs) and
+    aff2_<tag> (the inverses and the affine raw limbs); the host inverse
+    runs between them and the fetch after them.
 
     host_inv: tuple of leaf ints -> tuple of leaf ints (field inverse of
     the total product T, computed on host)."""
@@ -555,24 +577,24 @@ def make_affine_raw(curve, fops, host_inv, template):
             s <<= 1
         return P
 
-    def run(dev_pt):
-        X, Y, Z = dev_pt
+    def part1(pt):
+        Z = pt[2]
+        z0 = tree_leaves(Z)[0]
+        B, device = z0.shape[-1], z0.device
+        idx = torch.arange(B, device=device)
+        m = F.is_zero(Z)
+        zden = F.select(m, F.ones((B,), device), Z)
+        Pf = scan_products(zden, B, idx, reverse=False)
+        Sf = scan_products(zden, B, idx, reverse=True)
+        total = tree_map(lambda a: a[..., B - 1 : B], Pf)
+        return Pf, Sf, m, [fops.to_raw(l) for l in tree_leaves(total)]
+
+    def part2(pt, Pf, Sf, m, invT):
+        X, Y, Z = pt
         z0 = tree_leaves(Z)[0]
         B, device = z0.shape[-1], z0.device
         idx = torch.arange(B, device=device)
         ones = F.ones((B,), device)
-        m = F.is_zero(Z)
-        zden = F.select(m, ones, Z)
-        Pf = scan_products(zden, B, idx, reverse=False)
-        Sf = scan_products(zden, B, idx, reverse=True)
-        total = tree_map(lambda a: a[..., B - 1 : B], Pf)
-        t_ints = tuple(
-            spec.unpack_raw(fops.to_raw(l))[0] for l in tree_leaves(total)
-        )
-        packed = [spec.pack([v], device) for v in host_inv(t_ints)]
-        # match the field-element structure of Z: bare tensor for Fp,
-        # component tuple for extension fields
-        invT = packed[0] if len(packed) == 1 else tuple(packed)
         left = tree_map(lambda a: torch.roll(a, 1, dims=-1), Pf)
         left = F.select(idx < 1, ones, left)          # P_{i-1}
         right = tree_map(lambda a: torch.roll(a, -1, dims=-1), Sf)
@@ -584,14 +606,29 @@ def make_affine_raw(curve, fops, host_inv, template):
         leaves = []
         for l in tree_leaves((xa, ya)):
             r = fops.to_raw(l)
-            r = torch.where(m[None], torch.zeros_like(r), r)
-            leaves.append(r.cpu().numpy().astype(np.uint16))
-        return PointVec(leaves, spec, template)
+            # uint16 bit pattern: half the bytes of the fetch
+            leaves.append(torch.where(m[None], torch.zeros_like(r), r).to(torch.int16))
+        return leaves
+
+    aff1 = aotcache.jit(f"aff1_{tag}", part1, curve, fops)
+    aff2 = aotcache.jit(f"aff2_{tag}", part2, curve, fops)
+
+    def run(dev_pt):
+        Pf, Sf, m, t_raw = aff1(dev_pt)
+        t_ints = tuple(spec.unpack_raw(l)[0] for l in t_raw)
+        device = t_raw[0].device
+        packed = [spec.pack([v], device) for v in host_inv(t_ints)]
+        # match the field-element structure of Z: bare tensor for Fp,
+        # component tuple for extension fields
+        invT = packed[0] if len(packed) == 1 else tuple(packed)
+        leaves = aff2(dev_pt, Pf, Sf, m, invT)
+        return PointVec([l.cpu().numpy().view(np.uint16) for l in leaves],
+                        spec, template)
 
     return run
 
 
 def affine_raw_fn(curve, fops, host_inv, template, tag):
     if tag not in _AFFINE_RAW:
-        _AFFINE_RAW[tag] = make_affine_raw(curve, fops, host_inv, template)
+        _AFFINE_RAW[tag] = make_affine_raw(curve, fops, host_inv, template, tag)
     return _AFFINE_RAW[tag]

@@ -22,9 +22,12 @@ mont_mul and mont_redc kernels:
 
 Messages with no valid counter in [0, C1) go through a second round over
 the counters [C1, C) and are merged on the card; only the [B] `has` mask
-crosses to the host. Where the JAX package caches a jit per shape, this
-module calls plain functions; it caches only data (the Tonelli-Shanks
-tables, per device).
+crosses to the host. Where the JAX package caches one executable per shape
+(h2g_crh, h2g_round, h2g_merge), this module caches one CUDA graph per
+shape under the same tags (utils/aotcache.py): the CRH, each round and the
+merge take device words and indices, and their host reads come after the
+replay. Data (the Tonelli-Shanks tables, the cofactor's bits, the Blake2s
+state) is cached per device, outside any capture.
 
 Bit-exactness oracle: hash_to_curve/try_and_increment_cip22.py.
 """
@@ -36,6 +39,7 @@ import torch
 
 from ..hash_to_curve.common import G1_BYTES, hash_length
 from ..hostmath.params import G1_COFACTOR, P
+from ..utils import aotcache
 from ..utils.devices import require_device
 from ..utils.profiling import stage
 from ..utils.tree import tree_map
@@ -224,13 +228,32 @@ def _pow2ceil(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
+def _round_body(words, msg_len: int, domain: bytes, compat: bool, nc: int, m: int):
+    """One round's device program on its XOF message words [16 nblocks,
+    nc m]: Blake2Xs XOF, candidate parse, Legendre validity,
+    first-valid-counter selection, Tonelli-Shanks finish, sign select and
+    cofactor multiply. Returns (projective [m] tree, has [m] bool tensor)."""
+    xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
+    x, greatest, valid, w, t = _candidate_points(xof, compat)
+    vmat = valid.reshape(nc, m)
+    # the first valid counter (argmax: the first maximal index)
+    first = torch.argmax(vmat.to(torch.int32), dim=0)
+    has = vmat.any(dim=0)
+    lanes = first * m + torch.arange(m, device=x.device)
+    xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
+    y = _tonelli_shanks_finish(ts, ws)
+    y = _select_greatest(y, greatest[lanes])
+    pt = dc.g1.from_affine((xs, y))
+    return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
+
+
 def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,
                  compat: bool, device):
     """One round for counters [c_lo, c_lo + nc) over the messages whose CRH
     digests are the rows of crh_u8 [m, crh_len] (32 bytes for the
-    DirectHasher, 48 for the composite Pedersen CRH): Blake2Xs XOF,
-    candidate parse, Legendre validity, first-valid-counter selection,
-    Tonelli-Shanks finish, sign select and cofactor multiply.
+    DirectHasher, 48 for the composite Pedersen CRH): the XOF messages are
+    built on the host and copied to `device`, then _round_body runs as the
+    graph h2g_round_<msg_len>_<domain>_<compat>_<nc>_<m>.
 
     Returns (projective [m] tree on `device`, has [m] numpy bool); lanes
     with has=False hold garbage points."""
@@ -248,21 +271,23 @@ def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,
         buf[:, 1 : 1 + edlen] = np.tile(ed, (nc, 1)) if ed.ndim == 2 else ed
     buf[:, 1 + edlen : msg_len] = np.tile(crh_u8, (nc, 1))
     words = db.words_to_device(buf.view("<u4").T.copy(), device)
-
-    xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
-    x, greatest, valid, w, t = _candidate_points(xof, compat)
-    vmat = valid.reshape(nc, m)
-    # the first valid counter (argmax: the first maximal index)
-    first = torch.argmax(vmat.to(torch.int32), dim=0)
-    has = vmat.any(dim=0)
-    lanes = first * m + torch.arange(m, device=x.device)
-    xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
-    y = _tonelli_shanks_finish(ts, ws)
-    y = _select_greatest(y, greatest[lanes])
-    pt = dc.g1.from_affine((xs, y))
-    jac = dc.g1.scalar_mul_const(G1_COFACTOR, pt)
+    fn = aotcache.jit(f"h2g_round_{msg_len}_{domain.hex()}_{int(compat)}_{nc}_{m}",
+                      lambda wds: _round_body(wds, msg_len, domain, compat, nc, m))
+    jac, has = fn(words)
     # the one host read of the round (it waits for the round's work)
     return jac, has.cpu().numpy()
+
+
+def _merge(full, part, idx, ok):
+    """Lanes idx of `full` take `part` where ok, else keep their value. The
+    padding of a round-2 chunk repeats its first lane, so idx holds
+    duplicates, but every copy of a lane carries the same value: the
+    unordered write of index_copy is harmless."""
+    return tree_map(
+        lambda f, p: f.index_copy(
+            -1, idx, torch.where(ok[None], p, torch.index_select(f, -1, idx))),
+        full, part,
+    )
 
 
 def extra_data_rows(extra_data, B: int) -> np.ndarray:
@@ -317,10 +342,12 @@ def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
     if crh_u8 is None:
         with stage("h2g.crh"):
             words = db.words_to_device(db.pack_messages(messages), device)
-            crh = db.blake2s_batch(
-                words, len(messages[0]), digest_size=32,
-                node_offset=db._xof_node_offset(HASH_BYTES), person=domain,
-            )
+            mlen = len(messages[0])
+            crh = aotcache.jit(f"h2g_crh_{mlen}_{domain.hex()}",
+                               lambda wds: db.blake2s_batch(
+                                   wds, mlen, digest_size=32,
+                                   node_offset=db._xof_node_offset(HASH_BYTES),
+                                   person=domain))(words)
             # [B, 32] LE digest bytes
             crh_u8 = crh.cpu().numpy().T.astype("<u4").copy().view(np.uint8)
     else:
@@ -347,18 +374,10 @@ def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
                     C1, C - C1, domain, compat, device,
                 )
                 # merge on the card: lanes resolved in round 2 take the new
-                # point. The padding repeats chunk[0], so idx holds
-                # duplicates, but every copy of a lane carries the same
-                # value: the unordered write of index_copy is harmless
-                idx_t = torch.from_numpy(idx.astype(np.int64)).to(device)
-                ok = torch.from_numpy(has2).to(device)[None]
-                jac = tree_map(
-                    lambda full, part: full.index_copy(
-                        -1, idx_t,
-                        torch.where(ok, part, torch.index_select(full, -1, idx_t)),
-                    ),
-                    jac, jac2,
-                )
+                # point
+                merge = aotcache.jit(f"h2g_merge_{cap}", _merge)
+                jac = merge(jac, jac2, torch.from_numpy(idx.astype(np.int64)).to(device),
+                            torch.from_numpy(has2).to(device))
                 has[chunk[has2[:m]]] = True
     return jac, has
 

@@ -34,12 +34,15 @@ the Groth16 setup's millions of generator multiples: a host-precomputed
 window table [W * 2^c] and W steps of gather + mixed add.
 
 Where the JAX package scans (lax.scan, fori_loop) this module loops in
-Python: every step is a handful of eager launches.
+Python: every step is a handful of launches. msm_pippenger and
+fixed_base_batch_mul run their device programs as one CUDA graph per shape
+(utils/aotcache.py), as the JAX package runs one executable per shape.
 """
 
 import numpy as np
 import torch
 
+from ..utils import aotcache
 from ..utils.config import get_config
 from ..utils.devices import require_device
 from ..utils.profiling import device_sync, stage
@@ -55,6 +58,26 @@ def _take(tree, idx):
 
 def _device_of(tree):
     return tree_leaves(tree)[0].device
+
+
+def _curve_name(curve) -> str:
+    """The curve's name in ops/curve.py, for the graph tags."""
+    for name in ("g1", "g2", "bw6_g1", "bw6_g2"):
+        if getattr(dc, name) is curve:
+            return name
+    return f"curve{id(curve)}"
+
+
+def _to_device(a, device) -> torch.Tensor:
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+    return a.to(device)
+
+
+def _index_tensor(a, device) -> torch.Tensor:
+    """Integer indices (numpy or a tensor) -> int64 on `device`, converted
+    after the copy: half the bytes of int32 plans cross to the card."""
+    return _to_device(a, device).long()
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +328,13 @@ def plan_msm(scalars, nbits: int, c: int, L: int, fast_digits: bool = True):
     return perm, lin, lane, valid, B
 
 
+def plan_to_device(perm, lin, lane, valid, device):
+    """plan_msm's arrays -> the tensors _pippenger_device reads on `device`
+    (int64 indices, bool mask), the arguments of its graph."""
+    idx = tuple(_index_tensor(a, device) for a in (perm, lin, lane))
+    return (*idx, _to_device(valid, device))
+
+
 def plan_msm_generic(scalars, nbits: int, c: int, L: int):
     """plan_msm with the per-scalar digit loop (oracle for the
     byte-slicing fast path)."""
@@ -314,8 +344,8 @@ def plan_msm_generic(scalars, nbits: int, c: int, L: int):
 def _pippenger_device(curve, points_aff, perm, lin, lane, valid, c: int, L: int):
     """One projective batch-1 point = sum_i scalar_i * P_i (see module doc).
     points_aff: (x, y) affine leaves [n, B] on the device; plan arrays from
-    plan_msm (numpy, or tensors as convert.plan_from_numpy makes them). One
-    window's partial sums live at a time."""
+    plan_msm (numpy, or tensors as plan_to_device makes them: the graph
+    takes those). One window's partial sums live at a time."""
     device = _device_of(points_aff)
     W, B = perm.shape
     K = B // L
@@ -373,6 +403,15 @@ def _pippenger_device(curve, points_aff, perm, lin, lane, valid, c: int, L: int)
     return acc
 
 
+def _pippenger_jit(curve, c: int, L: int) -> aotcache.AotJit:
+    """_pippenger_device as one CUDA graph per shape, one AotJit per (curve,
+    c, L)."""
+    return aotcache.jit(
+        f"pip_{_curve_name(curve)}_c{c}_L{L}",
+        lambda pts, perm, lin, lane, valid: _pippenger_device(
+            curve, pts, perm, lin, lane, valid, c, L), curve)
+
+
 _BASE_PACK_CACHE = {}
 
 
@@ -416,7 +455,8 @@ def msm_pippenger(points, scalars, curve=None, spec=None, nbits=None,
         if full_key is not None and cfg.msm_cache_bases:
             _BASE_PACK_CACHE[full_key] = pts_aff
     with stage("msm.device"):
-        out = _pippenger_device(curve, pts_aff, perm, lin, lane, valid, c, L)
+        plan = plan_to_device(perm, lin, lane, valid, device)
+        out = _pippenger_jit(curve, c, L)(pts_aff, *plan)
         device_sync(out)
     if unpack_fn is not None:
         return unpack_fn(out)[0]
@@ -463,4 +503,8 @@ def _fixed_base_device(curve, table_aff, digits):
 
 
 def fixed_base_batch_mul(curve, table_aff, digits):
-    return _fixed_base_device(curve, table_aff, digits)
+    """_fixed_base_device as one CUDA graph per shape; digits (numpy or a
+    tensor) go to the table's device first."""
+    fn = aotcache.jit(f"fb_{_curve_name(curve)}",
+                      lambda t, d: _fixed_base_device(curve, t, d), curve)
+    return fn(table_aff, _index_tensor(digits, _device_of(table_aff)))

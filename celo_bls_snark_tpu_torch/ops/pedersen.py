@@ -15,7 +15,8 @@ batch runs as one program:
     form), plus one identity slot for chunk padding;
   - CARD: chunks laid out column-major [K steps x Lc lanes]; K steps of
     gather + conditional negate + mixed add over Lc*B flat lanes, then a
-    log2(Lc) tree fold.
+    log2(Lc) tree fold, as one CUDA graph per shape (bh_crh_<N>_<Lc>,
+    utils/aotcache.py).
 
 Output parity: crh bytes = serialized x-coordinate, 48 bytes LE
 (composite.rs:80-86). Oracle: hashers/composite.py::bh_pedersen_crh.
@@ -31,6 +32,7 @@ from ..hashers.composite import (
     crh_parameters,
 )
 from ..hostmath import curves as hcurves
+from ..utils import aotcache
 from ..utils.tree import tree_map
 from . import edwards as ed
 from .field import fq
@@ -128,12 +130,9 @@ def bh_crh_device(messages, device, Lc: int = 8):
         id_slot = 4 * N
         idx = np.concatenate([idx, np.full((pad, B), id_slot, np.int32)], axis=0)
         sign = np.concatenate([sign, np.zeros((pad, B), bool)], axis=0)
-    return _bh_device(
-        table,
-        torch.from_numpy(idx.astype(np.int64)).to(device),
-        torch.from_numpy(sign).to(device),
-        Lc,
-    )
+    fn = aotcache.jit(f"bh_crh_{N}_{Lc}", lambda t, i, s: _bh_device(t, i, s, Lc))
+    return fn(table, torch.from_numpy(idx.astype(np.int64)).to(device),
+              torch.from_numpy(sign).to(device))
 
 
 def bh_crh_digests(messages, device, Lc: int = 8):

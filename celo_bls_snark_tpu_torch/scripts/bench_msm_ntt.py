@@ -37,14 +37,18 @@ from ..ops import msm as dmsm
 from ..snark import groth16 as g16
 from ..snark.accel import DeviceAccel
 from ..snark.api import BW6_761_ENGINE
-from ..utils import profiling
+from ..utils import aotcache, profiling
 
 ENGINES = {"bw6_761": BW6_761_ENGINE, "bls12_377": g16.BLS12_377_ENGINE}
 
 
 class Meter:
     """Seconds per utils.profiling stage, kernel launches, wall time and
-    the card's peak memory over one `with` block."""
+    the card's peak memory over one `with` block. `launches` counts the
+    kernels' launches that ran from Python (eager code, and the first call
+    of a program, which runs eagerly), `graph_launches` those replayed from
+    utils/aotcache.py's graphs; a capture only records launches, and
+    counts none."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -53,6 +57,7 @@ class Meter:
     def __enter__(self):
         profiling.reset()
         F.reset_launches()
+        aotcache.reset_replays()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -66,6 +71,7 @@ class Meter:
         self.out["wall_s"] = time.perf_counter() - self.t0
         self.out["stage_s"] = {k: v["total_s"] for k, v in profiling.report().items()}
         self.out["launches"] = {k.name: k.launches for k in F.KERNELS}
+        self.out["graph_launches"] = aotcache.graph_launches()
 
 
 def fixed_base_stage(accel, engine, B, seed, sample=4):

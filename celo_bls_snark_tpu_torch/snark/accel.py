@@ -12,7 +12,10 @@ setup.rs:87-99); here the same stages run on the card:
                                 NTT pipeline on the device (ops/ntt.py)
 
 set_mesh routes the MSM and the h-polynomial over a multi-rank mesh
-(parallel/mesh.py), under the JAX package's conditions.
+(parallel/mesh.py), under the JAX package's conditions. On one card the
+MSM, the fixed-base batch, its affine conversion and the h-polynomial run as
+CUDA graphs, one per shape (utils/aotcache.py), and prewarm_prove(block=True)
+captures the prover's graphs for a proving key's shapes ahead of a proof.
 
 One DeviceAccel instance per pairing engine ("bls12_377", "bw6_761" — for
 BW6-761 both G1 and G2 live over Fq761; ops/curve.py::bw6_g1/bw6_g2 differ
@@ -39,9 +42,11 @@ from ..ops import msm as dmsm
 from ..ops import ntt as dntt
 from ..ops.field import FQ, FQ761, FR, fq, fq761, fr
 from ..parallel import mesh as pmesh
+from ..utils import aotcache
 from ..utils.config import get_config
 from ..utils.devices import require_device, resolve_device
 from ..utils.profiling import device_sync, stage
+from ..utils.tree import tree_map
 from .api import BW6_761_ENGINE
 from .groth16 import BLS12_377_ENGINE
 
@@ -150,18 +155,40 @@ class DeviceAccel:
             raise ValueError(engine_name)
 
     def prewarm_prove(self, pk, block=False):
-        """Get ready everything the prover needs that depends only on the
-        proving key's sizes: the kernel library (built and loaded) and the
-        twiddle and coset tables for d = len(h_query) + 1. Eager PyTorch
-        has no programs to compile ahead, so unlike the JAX package's
-        prewarm there is nothing to run in a background thread: the work
-        is done when the call returns (`block` is accepted and ignored)
-        and the returned list of threads is empty."""
+        """Get ready what the prover needs that depends only on the proving
+        key's sizes: the kernel library (built and loaded) and the twiddle
+        and coset tables for d = len(h_query) + 1. With `block`, also
+        capture the prover's CUDA graphs for the key's shapes, as the JAX
+        package's prewarm compiles the prover's programs: the h-polynomial
+        and the Pippenger MSM at the widths of a_query, b_g2_query, l_query
+        and h_query, each on zero inputs (a graph's kernels do not depend
+        on the data), so that even a first proof replays them. Without it
+        the graphs are captured at their second use. Nothing runs in a
+        background thread: on an H100 a capture there ran 4-8 times slower
+        beside the witness synthesis and delayed the first proof (PERF.md).
+        Returns the started threads, always [] (the JAX signature)."""
         d = len(pk.h_query) + 1
         assert d & (d - 1) == 0, d
         if self.device.type == "cuda":
             kernels.library()
-        self._h_tables(d, self.engine.fr_generator)
+        consts = self._h_consts(d, self.engine.fr_generator)
+        if not block or self.device.type != "cuda":
+            return []
+        zero = torch.zeros((self.fspec.n, d), dtype=torch.int32, device=self.device)
+        self._h_program().prepare(zero, zero, zero, *consts)
+        cfg = get_config()
+        for grp, B0 in ((self.g1, len(pk.a_query)), (self.g2, len(pk.b_g2_query)),
+                        (self.g1, len(pk.l_query)), (self.g1, d - 1)):
+            if B0 < 1:
+                continue
+            c = cfg.msm_window or dmsm._auto_c(B0, grp.nbits)
+            L = cfg.msm_lanes or dmsm._auto_lanes(B0)
+            perm, lin, lane, valid, B = dmsm.plan_msm([0] * B0, grp.nbits, c, L)
+            pts = tree_map(lambda t: torch.zeros((t.shape[0], B), dtype=torch.int32,
+                                                 device=self.device),
+                           grp.pack_fn([None], self.device))
+            plan = dmsm.plan_to_device(perm, lin, lane, valid, self.device)
+            dmsm._pippenger_jit(grp.curve, c, L).prepare(pts, *plan)
         return []
 
     def set_mesh(self, mesh):
@@ -207,9 +234,7 @@ class DeviceAccel:
         device: 3 iNTT + 3 coset NTT + pointwise + 1 coset iNTT. Returns a
         RawScalarVec (raw canonical uint16 limbs, straight into MSM
         planning)."""
-        r = self.r
-        spec, f, nttops = self.fspec, self.fops, self.nttops
-        dev = self.device
+        spec, nttops, dev = self.fspec, self.nttops, self.device
         # four-step split: N1 % D == 0 and N2 % D == 0
         if self._routes(d % (self.mesh_size ** 2) == 0, "h_poly"):
             with stage("h_poly.pack"):
@@ -217,25 +242,45 @@ class DeviceAccel:
             with stage("h_poly.sharded"):
                 h_raw = pmesh.sharded_compute_h(self.mesh, nttops, *raws, d, g)
             return dmsm.RawScalarVec(h_raw.astype(np.uint16)[..., : d - 1], spec)
-        t_c_inv = pow((pow(g, d, r) - 1) % r, -1, r)
         with stage("h_poly.tables"):
-            m_fwd, m_inv, sc_g, sc_ginv = self._h_tables(d, g)
-            tinv_c = spec.const(t_c_inv, (1,), dev)
+            consts = self._h_consts(d, g)
         with stage("h_poly.pack"):
             args = tuple(spec.pack_raw(e, dev) for e in (a_evals, b_evals, c_evals))
         with stage("h_poly.device"):
+            out = self._h_program()(*args, *consts)
+            device_sync(out)
+        with stage("h_poly.fetch"):
+            raw16 = out.cpu().numpy().view(np.uint16)
+        return dmsm.RawScalarVec(raw16[..., : d - 1], spec)
+
+    def _h_consts(self, d: int, g: int):
+        """The h-polynomial's constant arguments on the device: the twiddle
+        and coset tables and 1 / t(c) in Montgomery form."""
+        r = self.r
+        t_c_inv = pow((pow(g, d, r) - 1) % r, -1, r)
+        return (*self._h_tables(d, g), self.fspec.const(t_c_inv, (1,), self.device))
+
+    def _h_program(self) -> aotcache.AotJit:
+        """The h_poly.device region as one CUDA graph per shape: raw limbs
+        of the three evaluation vectors and _h_consts -> h's raw limbs as
+        int16 (the uint16 bit pattern: half the copy). The JAX package
+        splits this region into six executables (hp_fromraw, hp_mul,
+        ntt_f, ntt_i, hp_toraw16, hp_combine) only to cut XLA's compile
+        time; a capture costs about one eager run, so the port captures the
+        region whole."""
+        f, nttops = self.fops, self.nttops  # the engine's, shared by its instances
+
+        def h_region(a_raw, b_raw, c_raw, m_fwd, m_inv, sc_g, sc_ginv, tinv_c):
             evs = []
-            for raw in args:
+            for raw in (a_raw, b_raw, c_raw):
                 coeffs = nttops.ntt(f.from_raw(raw), inverse=True, master=m_inv)
                 evs.append(nttops.ntt(f.mul(coeffs, sc_g), master=m_fwd))
             ae, be, ce = evs
             hc_ = f.mul(f.sub(f.mul(ae, be), ce), tinv_c.expand(ae.shape))
             h = f.mul(nttops.ntt(hc_, inverse=True, master=m_inv), sc_ginv)
-            out = f.to_raw(h).to(torch.int16)  # uint16 bit pattern: half the copy
-            device_sync(out)
-        with stage("h_poly.fetch"):
-            raw16 = out.cpu().numpy().view(np.uint16)
-        return dmsm.RawScalarVec(raw16[..., : d - 1], spec)
+            return f.to_raw(h).to(torch.int16)
+
+        return aotcache.jit(f"hp_{self.name}", h_region, f, nttops)
 
 
 _ACCEL_CACHE = {}

@@ -31,12 +31,14 @@ class Config:
     # byte-compatible with a deployed Celo ceremony.
     ark_parity: bool = False
     profile: bool = False                 # print utils.profiling stage times
+    profile_trace_dir: Optional[str] = None  # utils.profiling.device_trace output
 
 
 _CONFIG: Optional[Config] = None
 
 _INT_FIELDS = {"msm_window", "msm_lanes", "fixed_base_window", "compat_sign_bit"}
 _BOOL_FIELDS = {"profile", "msm_cache_bases", "ark_parity"}
+_STR_FIELDS = {"profile_trace_dir"}
 
 
 def _from_env(base: Config) -> Config:
@@ -49,6 +51,8 @@ def _from_env(base: Config) -> Config:
             updates[f.name] = int(raw)
         elif f.name in _BOOL_FIELDS:
             updates[f.name] = raw.lower() in ("1", "true", "yes")
+        elif f.name in _STR_FIELDS:
+            updates[f.name] = raw
     return replace(base, **updates) if updates else base
 
 

@@ -23,13 +23,18 @@ Phases (each prints one line or more; any failure exits non-zero):
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
   4. the verification path at the benchmark's defaults (524,288 messages,
-     100 validators, one group, the benchmark's seed): with the launch
-     counts set to 0 just before and read just after, the warm-up
-     verification is True; a stage-by-stage run of the same pipeline gives
-     each stage's time and launches, and its affine P legs equal the
-     host's; a tampered batch is False; 2 timed verifications (the
-     benchmark itself takes 5) give the metric line; one profiled
-     verification gives the card's busy time;
+     100 validators, one group, the benchmark's seed), through the
+     benchmark's CUDA graph (ops/bls.py::batch_verify_grouped_aot): with
+     the launch counts set to 0 just before and read just after, the two
+     warm-up verifications (an eager run; a capture and its replay) are
+     True; a
+     stage-by-stage eager run of the same pipeline gives each stage's time
+     and launches, and its affine P legs equal the host's; the staged
+     pipeline captured as a graph gives the same limbs at every stage
+     (final_exp included); a tampered batch is False through the graph; 2
+     timed replays (the benchmark itself takes 5) give the metric line,
+     with 2 eager verifications beside them; one profiled replay gives the
+     card's busy time;
   5. the launch-shape sweep of scripts/prof_field.py (mont_mul_shape);
   6. the Groth16 prover's device path at the epoch circuit's width,
      through snark/accel.py's DeviceAccel("bw6_761") by the stage functions
@@ -75,12 +80,26 @@ Phases (each prints one line or more; any failure exits non-zero):
      trusted_setup and prove with device="cuda" (the launch counts set to 0
      just before the setup and read just after the proof), the proof
      verifies, a tampered last epoch does not, and the byte API verifies
-     the serialized key and proof; seconds per stage, the constraint count,
+     the serialized key and proof; prewarm_prove(block=True) captures the
+     prover's graphs for the key and a second proof with the same key
+     replays them and equals the first; seconds per stage, the constraint count,
      the domain, peak memory and launches per kernel and limb count. Then
      the 2-SNARK helper on the BLS12-377 engine: setup of HashToBits(2)
      and generate_hash_helper on the card, its proof verified against the
      public inputs the helper statement fixes;
  12. the `kernels` line and the last line: {"ok": true, "device": {...}}.
+
+Every program that runs as a CUDA graph (utils/aotcache.py) is checked in
+the phase that called it, at its largest shape there: on the arguments of
+that call it is captured (if the path did not capture it already), its
+replay equals its function run eagerly, limb for limb, and both are timed
+between CUDA events; one `graph` line a program (tag, key, shapes captured,
+capture seconds, kernel nodes, the port's kernels in it, pool growth, eager
+and replay ms). The graphs are dropped at the end of each phase. Launch
+counts are launches that ran: the kernels' counters count those issued from
+Python (eager code, and the first call of each program, which runs
+eagerly; a capture records launches and counts none), `graph_launches`
+those that replays ran.
 
 It imports nothing of the JAX package, and exits non-zero without
 printing a result when no card is available.
@@ -153,7 +172,7 @@ from celo_bls_snark_tpu_torch.snark.accel import DeviceAccel, get_accel  # noqa:
 from celo_bls_snark_tpu_torch.snark.api import BW6_761_ENGINE  # noqa: E402
 from celo_bls_snark_tpu_torch.snark.fixtures import generate_test_data  # noqa: E402
 from celo_bls_snark_tpu_torch.snark.hash_to_bits_circuit import HashToBits  # noqa: E402
-from celo_bls_snark_tpu_torch.utils import profiling  # noqa: E402
+from celo_bls_snark_tpu_torch.utils import aotcache, profiling  # noqa: E402
 from celo_bls_snark_tpu_torch.utils.bits import (  # noqa: E402
     bits_le_to_bytes_le,
     bytes_le_to_bits_le,
@@ -473,21 +492,116 @@ def launch_counts():
     return {k.name: k.launches for k in F.KERNELS}
 
 
+def run_launches():
+    """The port's kernel launches that ran since reset_counts(): those
+    issued from Python plus those that graph replays ran."""
+    replayed = aotcache.graph_launches()
+    return {k: v + replayed.get(k, 0) for k, v in launch_counts().items()}
+
+
 def launch_counts_by_n():
     return {k.name: dict(sorted(k.launches_by_n.items())) for k in F.KERNELS}
 
 
-def busy_profile(fn):
-    """One call of fn under torch.profiler: wall time, the summed time of
-    all kernels on the card and its share of the wall, kernel count, the
-    port's own kernels and the kernels that took the most device time.
-    Only the card's activity is traced: host events would add a hundred
-    thousand records to sort for numbers this line does not print."""
-    from torch.profiler import ProfilerActivity, profile
+def reset_counts():
+    """Every launch count to 0: the kernels' counters and the graphs'
+    replay counts."""
+    F.reset_launches()
+    aotcache.reset_replays()
 
+
+def event_ms(fn, n=1):
+    """fn() n times between two CUDA events: (the last output, ms a call)."""
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(n):
+        out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1) / n
+
+
+def same_leaves(a, b):
+    a, b = tree_leaves(a), tree_leaves(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+_CALLS = {}  # (tag, mul) -> (size, AotJit, args): each program's largest call
+
+
+def record_calls():
+    """Have every AotJit call on the card keep its arguments, those of the
+    largest call per program and multiply, for graph_lines."""
+    call = aotcache.AotJit.__call__
+
+    def recorded(self, *args):
+        ts = [x for x in tree_leaves(args) if isinstance(x, torch.Tensor)]
+        if ts and ts[0].is_cuda:
+            k, size = (self.tag, F.selected_mul().name), sum(t.numel() for t in ts)
+            if k not in _CALLS or size > _CALLS[k][0]:
+                _CALLS[k] = (size, self, args)
+        return call(self, *args)
+
+    aotcache.AotJit.__call__ = recorded
+
+
+def graph_lines(phase):
+    """Every program called on the card since the last check, under the
+    field multiply selected now, on the arguments of its largest call: the
+    program's graph (captured now if the path did not capture it) replays
+    equal to its function run eagerly, leaf for leaf, and both are timed
+    between CUDA events on those arguments (the mean of 5 calls where one
+    eager call takes under 50 ms). One `graph` line a program, with the
+    number of shapes captured; each capture's own line is on stderr
+    ([aot] MISS)."""
+    mul = F.selected_mul().name
+    todo = [(k[0], v[1], v[2]) for k, v in _CALLS.items() if k[1] == mul]
+    for tag, jit, args in todo:
+        eager, eager_ms = event_ms(lambda: jit.fn(*args))
+        n = 5 if eager_ms < 50 else 1
+        if n > 1:
+            eager, eager_ms = event_ms(lambda: jit.fn(*args), n)
+        captured_by_path = aotcache._arg_key(args) in jit.entries
+        e = jit.prepare(*args)
+        graph, replay_ms = event_ms(lambda: jit(*args), n)
+        key = aotcache.key_str(e.key)
+        if not same_leaves(eager, graph):
+            fail(f"graph {tag} at {key}: the replay differs from the eager run")
+        line({"graph": tag, "key": key, "phase_of": phase,
+              "shapes": sum(x.mul == mul for x in jit.entries.values()),
+              "captured_by_path": captured_by_path, **e.info,
+              "eager_ms": eager_ms, "replay_ms": replay_ms, "calls_timed": n,
+              "equal_eager": True})
+    for k in [k for k in _CALLS if k[1] == mul]:
+        del _CALLS[k]
+
+
+def drop_graphs(phase):
+    """The phase's graphs, with their shared pool, freed: one line with the
+    pool's growth summed over the captures and the card's peak
+    allocation."""
+    es = aotcache.entries()
+    line({"phase": f"graphs_{phase}", "graphs": len(es),
+          "pool_bytes": sum(e.info["pool_bytes"] for e in es),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "memory_reserved": torch.cuda.memory_reserved()})
+    aotcache.clear()
+    _CALLS.clear()
+    torch.cuda.empty_cache()
+
+
+def busy_profile(fn):
+    """One call of fn under utils/profiling.py's device_trace: wall time,
+    the summed time of all kernels on the card and its share of the wall,
+    kernel count, the port's own kernels and the kernels that took the most
+    device time. Only the card's activity is traced unless
+    CELO_BLS_TPU_PROFILE_TRACE_DIR asks for a Chrome trace: host events
+    would add a hundred thousand records to sort for numbers this line does
+    not print."""
     t_all = time.perf_counter()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.device_trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -519,14 +633,16 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
     build_s = time.perf_counter() - t0
     # the main path through the benchmark's entry point, with the launch
     # counts set to 0 just before and read just after exactly this run
-    F.reset_launches()
+    # (its eager run, and its capture and first replay)
+    reset_counts()
     t0 = time.perf_counter()
     bench.warm_up(sigs, hashes, apk)
     warm_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = run_launches()
     for name in ("mont_mul", "mont_redc"):
         if launches[name] <= 0:
             fail(f"main path: kernel {name} was not launched")
+    (graph,) = [e for e in aotcache.entries() if e.jit.tag == "bls_grouped_1"]
     stages, state = stage_breakdown(sigs, hashes, apk)
     # host check of the P legs: lane k*N_SEED + i holds (k+1) H_i, so the
     # hash sum is T * sum(H) with T = tiles (tiles + 1) / 2
@@ -537,18 +653,43 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
     xs, ys = (F.FQ.unpack(v) for v in state["p_aff"])
     if list(zip(xs, ys)) != want:
         fail("main path: the affine P legs differ from the host's")
+    # the staged pipeline as a graph: every stage's limbs, final_exp
+    # included (its first call runs eagerly, the second replays the graph)
+    staged = aotcache.jit("bls_grouped_stages_1", lambda s, h, pk: tuple(
+        bench.dbls.batch_verify_grouped_stages(s, h, pk, 1).values()))
+    for _ in range(2):
+        if not same_leaves(staged(sigs, hashes, apk), tuple(state.values())):
+            fail("main path: the staged pipeline's graph differs from its eager run")
+    if next(iter(staged.entries.values())).replays != 1:
+        fail("main path: the staged pipeline did not replay its graph")
     if bool(bench.verify(tamper_first_lane(sigs), hashes, apk)[0]):
-        fail("main path: tampered batch verified True")
+        fail("main path: tampered batch verified True through the graph")
     metric = bench.timed(n_messages, sigs, hashes, apk, n_iter=n_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        ok = bench.dbls.batch_verify_grouped_device(sigs, hashes, apk, 1)
+    torch.cuda.synchronize()
+    eager_s = (time.perf_counter() - t0) / n_iter
+    if not bool(ok[0]):
+        fail("main path: the eager verification returned False")
+    metric.update(eager_seconds_per_verify=eager_s, eager_value=n_messages / eager_s,
+                  graph=True)
     line({"phase": "main_path_stages", **stages})
-    line({"phase": "main_path_profile",
+    line({"phase": "main_path_profile", "replayed_graph": True,
           **busy_profile(lambda: bench.verify(sigs, hashes, apk))})
+    graph_lines("main_path")
     line({"phase": "main_path", "messages": n_messages,
           "validators": n_validators, "groups": 1, "input_build_s": build_s,
-          "warmup_s": warm_s, "launches_per_verify": launches,
-          "timed_verifications": n_iter,
+          "warmup_s": warm_s, "launches": launches,
+          "launches_note": "the warm-up's launches that ran: its eager run "
+                           "and its first replay",
+          "launches_per_verify": graph.info["port_kernels"],
+          "launches_per_verify_from": "the graph's capture",
+          "timed_verifications": n_iter, "final_exp_graph_equal_eager": True,
           "p_aff_equal_host": True, "tampered_ok": False})
     line(metric)
+    drop_graphs("main_path")
     return launches, (sigs, hashes, apk)
 
 
@@ -584,12 +725,14 @@ def phase_hash_verify(n_messages=16384, n_validators=100, n_iter=2,
         torch.cuda.synchronize()
         sign_s = time.perf_counter() - t0
         # the path, with the launch counts set to 0 just before and read
-        # just after exactly this verification
-        F.reset_launches()
+        # just after exactly this verification (every program's first call,
+        # which runs eagerly)
+        reset_counts()
         t0 = time.perf_counter()
         ok = bool(hash_bench.verify(sigs, apk_aff, msgs, composite)[0])
         warm_s = time.perf_counter() - t0
-        launches = launch_counts()
+        launches = run_launches()
+        warm_graph_launches = aotcache.graph_launches()
         if not ok:
             fail(f"hash_verify ({hasher_name}): the honest batch verified False")
         require_path_kernels(f"hash_verify ({hasher_name})", launches)
@@ -613,21 +756,38 @@ def phase_hash_verify(n_messages=16384, n_validators=100, n_iter=2,
         if bad:
             fail(f"hash_verify ({hasher_name}): lanes {bad[:8]} differ from the "
                  f"host TryAndIncrementCIP22 ({len(bad)} of {len(lanes)})")
+        # the second call of the path's programs: captured and replayed
         if bool(hash_bench.verify(tamper_first_lane(sigs), apk_aff, msgs, composite)[0]):
             fail(f"hash_verify ({hasher_name}): the tampered batch verified True")
+        if not any(e.jit.tag == "bls_grouped_1" and e.replays for e in aotcache.entries()):
+            fail(f"hash_verify ({hasher_name}): the tampered batch did not replay "
+                 "the pairing check's graph")
+        reset_counts()
         metric = hash_bench.timed(sigs, apk_aff, msgs, composite, n_iter)
+        timed_eager, replayed = launch_counts(), aotcache.graph_launches()
+        per_verify = {k: (v + replayed.get(k, 0)) / n_iter for k, v in timed_eager.items()}
         if not composite:  # one profiled verification for the busy share
             line({"phase": "hash_verify_profile", "hasher": hasher_name,
+                  "replayed_graphs": True,
                   **busy_profile(lambda: hash_bench.verify(sigs, apk_aff, msgs, False))})
+        graph_lines(f"hash_verify {hasher_name}")
         line({"phase": "hash_verify", "hasher": hasher_name, "messages": n_messages,
               "validators": n_validators, "num_counters": hash_bench.NUM_COUNTERS,
               "compat": True, "committee_s": committee_s, "setup_s": setup_s,
               "sign_on_card_s": sign_s, "warmup_s": warm_s,
-              "launches_per_verify": launches, "ok": True, "tampered_ok": False,
+              "launches": launches, "graph_launches": warm_graph_launches,
+              "launches_note": "the warm-up's launches that ran: eager code and "
+                               "every program's first call (graph_launches: "
+                               "replays, none in a first call)",
+              "launches_per_verify": per_verify,
+              "launches_per_verify_from": "the timed verifications (graph replays "
+                                          "and eager code)",
+              "ok": True, "tampered_ok": False,
               "host_checked_lanes": len(lanes), "host_checked_sample": n_sample,
               "host_checked_round2": len(round2), "host_check_s": host_s,
               "fallback_lanes": len(fallback), "equal_host": True})
         line(metric)
+    drop_graphs("hash_verify")
     return total
 
 
@@ -666,11 +826,11 @@ def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
         out = bench.dbls.strict_batch_verify_device(digits, sigs, pk_jac, h_aff, G, c)
         return out.cpu().tolist(), fallback
 
-    F.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res, fallback = strict(sig_jac)
     first_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = run_launches()
     if not all(res):
         fail(f"strict_verify: epochs {[g for g in range(G) if not res[g]][:8]} False")
     require_path_kernels("strict_verify", launches)
@@ -692,6 +852,8 @@ def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
           "first_s": first_s, "seconds": timed_s, "epochs_per_s": G / timed_s,
           "launches": launches, "fallback_lanes": len(fallback), "all_true": True,
           "bad_epoch": bad_epoch, "only_bad_epoch_false": True})
+    graph_lines("strict_verify")
+    drop_graphs("strict_verify")
     return launches
 
 
@@ -739,7 +901,7 @@ def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
         return generate_parameters(cs, engine, rng, accel=accel)
 
     g16.generate_parameters = sized
-    F.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     try:
         params = api.trusted_setup(n_validators, n_transitions, faults,
@@ -747,7 +909,7 @@ def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
     finally:
         g16.generate_parameters = generate_parameters
     setup_s = time.perf_counter() - t0
-    setup_launches = launch_counts()
+    setup_launches = run_launches()
     setup_stages = profiling.report()
     profiling.reset()
     t0 = time.perf_counter()
@@ -757,8 +919,9 @@ def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
     proof = api.prove(params, n_validators, first, transitions,
                       max_transitions=n_transitions, device="cuda")
     prove_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = run_launches()
     by_n = launch_counts_by_n()
+    replayed = aotcache.graph_launches()
     prove_stages = profiling.report()
     peak = torch.cuda.max_memory_allocated()
     if not by_n["mont_mul"].get(49) or not by_n["mont_mul"].get(25):
@@ -775,6 +938,30 @@ def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
     if not api.verify(serialize_bw6.vk_to_bytes(vk), serialize_bw6.proof_to_bytes(proof),
                       first, last):
         fail("epoch_snark: the byte API rejects the serialized key and proof")
+    # the prover's graphs captured for the key ahead of a proof, and a
+    # second proof with the same key replaying every one of them (its MSMs
+    # and h-polynomial): what a prover that proves epoch after epoch pays
+    before = {id(e) for e in aotcache.entries()}
+    t0 = time.perf_counter()
+    get_accel("bw6_761", DEV).prewarm_prove(params.epochs, block=True)
+    prewarm_s = time.perf_counter() - t0
+    prewarmed = [e for e in aotcache.entries() if id(e) not in before]
+    profiling.reset()
+    aotcache.reset_replays()
+    t0 = time.perf_counter()
+    again = api.prove(params, n_validators, first, transitions,
+                      max_transitions=n_transitions, device="cuda")
+    prove_warm_s = time.perf_counter() - t0
+    warm_stages = profiling.report()
+    if again != proof:
+        fail("epoch_snark: the second proof with the same key differs from the first")
+    prewarm_replays = {f"{e.jit.tag} {aotcache.key_str(e.key)}": e.replays
+                       for e in prewarmed}
+    replayed_tags = {e.jit.tag for e in aotcache.entries() if e.replays}
+    if min(prewarm_replays.values(), default=0) < 1 or "hp_bw6_761" not in replayed_tags \
+            or not any(t.startswith("pip_bw6_g1") for t in replayed_tags):
+        fail(f"epoch_snark: the second proof did not replay the prover's graphs: "
+             f"prewarmed {prewarm_replays}, replayed {sorted(replayed_tags)}")
     pk = params.epochs
     stage_s = lambda rep: {k: v["total_s"] for k, v in rep.items()}  # noqa: E731
     line({"phase": "epoch_snark", "validators": n_validators, "faults": faults,
@@ -783,11 +970,21 @@ def phase_epoch_snark(n_validators=4, faults=1, n_transitions=2, order=()):
           "variables": len(pk.a_query),
           "setup_s": setup_s, "fixtures_s": fixtures_s, "prove_s": prove_s,
           "verify_s": verify_s, "setup_stage_s": stage_s(setup_stages),
-          "prove_stage_s": stage_s(prove_stages), "peak_bytes": peak,
+          "prove_stage_s": stage_s(prove_stages), "prewarm_block_s": prewarm_s,
+          "prove_warm_s": prove_warm_s,
+          "prove_warm_stage_s": stage_s(warm_stages), "warm_proof_equal": True,
+          "peak_bytes": peak,
           "setup_launches": setup_launches, "launches": launches,
-          "launches_by_n": by_n, "ok": True, "tampered_ok": False,
+          "launches_by_n": by_n, "graph_launches": replayed,
+          "launches_note": "setup + first proof, launches that ran: issued "
+                           "from Python plus replayed (graph_launches: the "
+                           "replays alone)",
+          "prewarmed_graphs_replays": prewarm_replays, "ok": True, "tampered_ok": False,
           "bytes_api_ok": True, "phases_before": list(order), **info})
-    return launches, phase_epoch_helper([t.block for t in transitions])
+    helper = phase_epoch_helper([t.block for t in transitions])
+    graph_lines("epoch_snark")
+    drop_graphs("epoch_snark")
+    return launches, helper
 
 
 def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
@@ -796,7 +993,7 @@ def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
     against the public inputs the helper statement fixes."""
     profiling.reset()
     torch.cuda.reset_peak_memory_stats()
-    F.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     hcs = ConstraintSystem(g16.BLS12_377_ENGINE.fr, "setup")
     HashToBits.empty(len(blocks)).generate_constraints(hcs)
@@ -806,7 +1003,7 @@ def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
     t0 = time.perf_counter()
     helper = api.generate_hash_helper(helper_pk, blocks, device="cuda")
     prove_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = run_launches()
     by_n = launch_counts_by_n()
     if not by_n["mont_mul"].get(17) or not by_n["mont_mul"].get(25):
         fail(f"epoch_snark helper: mont_mul<17> and mont_mul<25> must both launch: {by_n}")
@@ -828,7 +1025,8 @@ def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
           "setup_s": setup_s, "prove_s": prove_s,
           "stage_s": {k: v["total_s"] for k, v in profiling.report().items()},
           "peak_bytes": torch.cuda.max_memory_allocated(),
-          "launches": launches, "launches_by_n": by_n, "ok": True,
+          "launches": launches, "launches_by_n": by_n,
+          "graph_launches": aotcache.graph_launches(), "ok": True,
           "changed_input_ok": False})
     return launches
 
@@ -836,9 +1034,9 @@ def phase_epoch_helper(blocks, seed=b"e2e-hash-helper0"):
 def phase_shape_sweep():
     """The launch-shape sweep through its script's entry point, with the
     counts set to 0 just before and read just after."""
-    F.reset_launches()
+    reset_counts()
     rows = prof_field.sweep(B=SHAPE_B)
-    launches = launch_counts()
+    launches = run_launches()
     if not all(r["equal"] for r in rows):
         fail("shape sweep: a block size's chain differs from mont_mul's")
     stray = {r["kernel"]: r for r in rows
@@ -857,13 +1055,11 @@ def add_launches(total, part):
 
 
 def msm_profile(accel, bases, ss):
-    """One MSM under torch.profiler: the summed time of all kernels on the
-    card against the wall time of its device stage."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """One MSM under utils/profiling.py's device_trace: the summed time of
+    all kernels on the card against the wall time of its device stage."""
     profiling.reset()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiling.device_trace() as prof:
         accel.g1.msm(bases, ss)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
@@ -872,7 +1068,8 @@ def msm_profile(accel, bases, ss):
     wall = sum(v["total_s"] for k, v in profiling.report().items()
                if k in ("msm.pack_bases", "msm.device"))
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    return {"phase": "prover_msm_profile", "pack_and_device_wall_s": wall,
+    return {"phase": "prover_msm_profile", "replayed_graphs": True,
+            "pack_and_device_wall_s": wall,
             "device_busy_s": busy if busy else "not measured",
             "device_busy_share": busy / wall if busy else "not measured",
             "kernel_launches": sum(e.count for e in kern),
@@ -907,8 +1104,10 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
             if not res["ok"]:
                 fail(f"prover path: stage {res['stage']} disagrees with its host oracle")
             add_launches(cios, res.get("launches", {}))
+            add_launches(cios, res.get("graph_launches", {}))
         if cios["mont_mul"] <= 0 or cios["mont_redc"] <= 0 or cios["mont_mul_tc"]:
             fail(f"prover path: unexpected launch counts {cios}")
+        graph_lines("prover cios")
     tc = {}
     with F.mul_kernel("tc"):
         point_tc, res = prover.msm_stage(accel, engine, bases, ks, seed + 1, ss)
@@ -916,18 +1115,21 @@ def phase_prover(lg_msm=20, lg_ntt=20, seed=20261016):
         for res in (res, res_h):
             line({"phase": "prover", "mul": "tc", **res})
             add_launches(tc, res["launches"])
+            add_launches(tc, res["graph_launches"])
         if not res["ok"] or point_tc != point:
             fail("prover path (tc): the MSM result differs")
         if not (h_tc.limbs == h.limbs).all():
             fail("prover path (tc): the h-polynomial's limbs differ")
         if tc["mont_mul_tc"] <= 0 or tc["mont_mul"] != 0:
             fail(f"prover path (tc): not every multiply went through mont_mul_tc: {tc}")
+        graph_lines("prover tc")
     # the profiled MSM comes last: it is there for the card's busy share
     # alone, and both multiplies' stages are timed before a profiler has
     # traced an MSM
     with F.mul_kernel("cios"):
         rnd = random.Random(seed + 5)
         line(msm_profile(accel, bases, [rnd.randrange(engine.fr) for _ in range(B)]))
+    drop_graphs("prover")
     line({"phase": "prover_path", "msm_points": B, "h_domain": d,
           "launches_cios": cios, "launches_tc": tc,
           "msm_equal_host": True, "tc_equal_cios": True})
@@ -978,7 +1180,9 @@ def mesh_pairings(mesh, main_inputs):
 def set_mesh_check(mesh, seed):
     """A size-1 set_mesh keeps DeviceAccel on the single-card route: the
     h-polynomial at 2^12 and an MSM of 4,096 points give the same results
-    and the same launches per kernel and limb count with and without it."""
+    and the same launches (per kernel and limb count issued from Python,
+    and replayed from the same graphs) with and without it. A first run
+    captures the graphs, so that the compared runs are alike."""
     accel = DeviceAccel("bls12_377", DEV)
     rnd = random.Random(seed)
     d = 1 << 12
@@ -987,12 +1191,13 @@ def set_mesh_check(mesh, seed):
     sc = [rnd.randrange(R) for _ in pts]
     runs = []
     try:
-        for m in (None, mesh, None):
+        for m in (None, None, mesh, None):
             accel.set_mesh(m)
-            F.reset_launches()
+            reset_counts()
             h = accel.compute_h_evals(*evals, d, g16.BLS12_377_ENGINE.fr_generator)
             pt = accel.g1.msm(pts, sc)
-            runs.append((launch_counts_by_n(), h.limbs, pt))
+            runs.append(((launch_counts_by_n(), aotcache.graph_launches()), h.limbs, pt))
+        runs = runs[1:]
     finally:
         accel.set_mesh(None)
     same = all(r[0] == runs[0][0] and (r[1] == runs[0][1]).all() and r[2] == runs[0][2]
@@ -1032,7 +1237,7 @@ def phase_mesh(state, main_inputs, seed=20261020):
             xs = {k: ops.f.from_raw(raw) for k, (ops, raw, _) in inputs.items()}
             torch.cuda.synchronize()
             # the mesh path, counts set to 0 just before and read just after
-            F.reset_launches()
+            reset_counts()
             # the first call builds the four-step twiddles; the second is warm
             for key in ("sharded_compute_h", "sharded_compute_h_warm"):
                 h_raw, secs[key] = card_s(lambda: pmesh.sharded_compute_h(
@@ -1047,7 +1252,7 @@ def phase_mesh(state, main_inputs, seed=20261020):
                 mesh, state["bases"], state["scalars"], curve=dc.bw6_g1, nbits=377))
             verdicts, secs["pairing_checks"] = card_s(lambda: mesh_pairings(mesh, main_inputs))
             _, secs["dryrun_multichip"] = card_s(lambda: port_entry.dryrun_multichip(mesh))
-            launches, by_n = launch_counts(), launch_counts_by_n()
+            launches, by_n = run_launches(), launch_counts_by_n()
             require_path_kernels("mesh", launches)
             same_route, route_launches = set_mesh_check(mesh, seed)
         finally:
@@ -1083,10 +1288,13 @@ def phase_mesh(state, main_inputs, seed=20261020):
           "msm_equal_single_card": True, "verdicts": verdicts,
           "dryrun_multichip": True, "size1_set_mesh_launches": route_launches,
           "size1_set_mesh_same_route": True})
+    graph_lines("mesh")
+    drop_graphs("mesh")
     return launches
 
 
 def main():
+    record_calls()
     smi = phase_device()
     rows, worst = phase_kernels()
     phase_entry()
@@ -1112,6 +1320,9 @@ def main():
             **KERNEL_INFO[name],
             "launches": sum(p[name] for p in by_path.values()),
             "launches_by_path": {k: p[name] for k, p in by_path.items()},
+            "launches_note": "launches that ran on each path: issued from "
+                             "Python plus replayed from CUDA graphs; a "
+                             "capture records launches and counts none",
             "max_abs_err": worst[name],
             "ms": main_row["ms"], "eager_ms": main_row["eager_ms"],
             "plain_ms": main_row["plain_ms"],
