@@ -21,6 +21,7 @@ Bit-exactness oracle: utils/blake2s.py.
 import numpy as np
 import torch
 
+from ..utils import aotcache
 from ..utils.blake2s import IV, SIGMA
 
 MASK32 = 0xFFFFFFFF
@@ -160,18 +161,29 @@ def blake2xs_batch(words, msg_len, xof_digest_length, person=b""):
     return torch.stack(outs)
 
 
-def direct_hash_batch(messages, output_size_in_bytes, domain, device):
-    """DirectHasher.hash over a batch of equal-length messages
-    (direct.rs: crh then xof). Returns a list of digest byte strings."""
-    words = words_to_device(pack_messages(messages), device)
+def _direct_hash_words(words, msg_len, output_size_in_bytes, domain):
     crh = blake2s_batch(
-        words, len(messages[0]), digest_size=32,
+        words, msg_len, digest_size=32,
         node_offset=_xof_node_offset(output_size_in_bytes), person=domain,
     )
     # the CRH digests (32 bytes = 8 words) are the XOF message: one 64-byte
     # block, upper half zero
     xof_words = torch.cat([crh, torch.zeros_like(crh)])
-    out = blake2xs_batch(xof_words, 32, output_size_in_bytes, domain)
+    return blake2xs_batch(xof_words, 32, output_size_in_bytes, domain)
+
+
+def direct_hash_batch(messages, output_size_in_bytes, domain, device):
+    """DirectHasher.hash over a batch of equal-length messages
+    (direct.rs: crh then xof). Returns a list of digest byte strings. The
+    CRH and the XOF run as one program of utils/aotcache.py per message
+    length, output size and domain (the JAX package's jitted `run`); the
+    bytes are assembled on the host."""
+    words = words_to_device(pack_messages(messages), device)
+    msg_len = len(messages[0])
+    run = aotcache.jit(
+        f"direct_hash_{msg_len}_{output_size_in_bytes}_{domain.hex()}",
+        lambda w: _direct_hash_words(w, msg_len, output_size_in_bytes, domain))
+    out = run(words)
     # [B, n_hashes * 32] little-endian bytes, truncated per lane
     buf = out.cpu().numpy().astype("<u4").transpose(2, 0, 1).copy().view(np.uint8)
     buf = buf.reshape(out.shape[2], -1)[:, :output_size_in_bytes]

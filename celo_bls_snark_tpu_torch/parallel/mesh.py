@@ -21,6 +21,12 @@ outside any kernel:
 
 A mesh without a process group (a single process that never called
 init_distributed) has one rank, and its collectives are the identity.
+
+Each function's device work is one program of utils/aotcache.py (a CUDA
+graph per shape on the card, collectives included), as each of the JAX
+package's is one jax.jit of a shard_map; the plan, the packing and the
+fetch of the Pippenger MSM and the h-polynomial stay on the host. On CPU
+tensors (gloo) a program calls its body.
 """
 
 from dataclasses import dataclass
@@ -36,6 +42,7 @@ from ..ops import ntt as dntt
 from ..ops import pairing as dp
 from ..ops import tower as tw
 from ..ops.field import FQ, _sub_limbs_u32
+from ..utils import aotcache
 from ..utils.config import get_config
 from ..utils.devices import require_device, resolve_device
 from ..utils.profiling import device_sync, stage
@@ -119,29 +126,47 @@ def shard_batch(mesh, tree):
     return tree_map(lambda x: x[..., lo:lo + k].to(mesh.device), tree)
 
 
+def _program(mesh, name, fn, *owners) -> aotcache.AotJit:
+    """fn as one program of utils/aotcache.py: the tag names the mesh's
+    static values (its size, this rank and its device) after `name`, which
+    names the program's own; the owners are the process group and the
+    objects fn closes over besides the mesh."""
+    return aotcache.jit(f"mesh_{name}_D{mesh.size}_r{mesh.rank}_{mesh.device}",
+                        fn, mesh.group, *owners)
+
+
 # --- pairing ------------------------------------------------------------------
 
-def sharded_miller_product(mesh, p_aff, q_aff):
-    """Batch-sharded Miller loops + cross-rank GT product: local Miller
-    loops and tree product per rank, an all-gather of the per-rank partial
-    Fq12 elements, and a final local product."""
+def _miller_product(mesh, p_aff, q_aff):
     f = dp.miller_loop_batch(shard_batch(mesh, p_aff), shard_batch(mesh, q_aff))
     f = dp.f12_product(f)  # [.., 1] per rank
     return dp.f12_product(_gather_lanes(mesh, f))
 
 
+def sharded_miller_product(mesh, p_aff, q_aff):
+    """Batch-sharded Miller loops + cross-rank GT product: local Miller
+    loops and tree product per rank, an all-gather of the per-rank partial
+    Fq12 elements, and a final local product."""
+    return _program(mesh, "miller_product",
+                    lambda p, q: _miller_product(mesh, p, q))(p_aff, q_aff)
+
+
 def sharded_pairing_check(mesh, p_aff, q_aff):
     """Full sharded product-of-pairings check: sharded Miller + product,
-    then the (replicated, single-element) final exponentiation."""
-    f = sharded_miller_product(mesh, p_aff, q_aff)
-    return tw.f12_is_one(dp.final_exponentiation(f))
+    then the (replicated, single-element) final exponentiation, as one
+    program."""
+    return _program(mesh, "pairing_check", lambda p, q: tw.f12_is_one(
+        dp.final_exponentiation(_miller_product(mesh, p, q))))(p_aff, q_aff)
 
 
 # --- sums and MSMs ------------------------------------------------------------
 
 def _sharded_msum(mesh, pts_jac, curve):
-    s = curve.msum(shard_batch(mesh, pts_jac))
-    return curve.msum(_gather_lanes(mesh, s))
+    def body(pts):
+        s = curve.msum(shard_batch(mesh, pts))
+        return curve.msum(_gather_lanes(mesh, s))
+
+    return _program(mesh, f"msum_{dmsm._curve_name(curve)}", body, curve)(pts_jac)
 
 
 def sharded_msum_g1(mesh, pts_jac):
@@ -156,8 +181,11 @@ def sharded_msum_g2(mesh, pts_jac):
 def sharded_msm_g1(mesh, bits, pts_jac):
     """Sharded dense MSM: batch-sharded scalar-muls, per-rank partial sums,
     the all-gathered total (bits: [nbits, B] MSB first)."""
-    prods = dc.g1.scalar_mul_bits(shard_batch(mesh, bits), shard_batch(mesh, pts_jac))
-    return dc.g1.msum(_gather_lanes(mesh, dc.g1.msum(prods)))
+    def body(b, pts):
+        prods = dc.g1.scalar_mul_bits(shard_batch(mesh, b), shard_batch(mesh, pts))
+        return dc.g1.msum(_gather_lanes(mesh, dc.g1.msum(prods)))
+
+    return _program(mesh, "msm_g1_dense", body)(bits, pts_jac)
 
 
 def _scalar_shard(scalars, lo, hi, width):
@@ -217,8 +245,11 @@ def sharded_msm_pippenger(mesh, points, scalars, c=None, L=None,
         if full_key is not None and cfg.msm_cache_bases:
             dmsm._BASE_PACK_CACHE[full_key] = pts_aff
     with stage("msm.device"):
-        out = dmsm._pippenger_device(curve, pts_aff, perm, lin, lane, valid, c, L)
-        out = curve.msum(_gather_lanes(mesh, out))
+        plan = dmsm.plan_to_device(perm, lin, lane, valid, device)
+        out = _program(mesh, f"pip_{dmsm._curve_name(curve)}_c{c}_L{L}",
+                       lambda pts, *pl: curve.msum(_gather_lanes(
+                           mesh, dmsm._pippenger_device(curve, pts, *pl, c, L))),
+                       curve)(pts_aff, *plan)
         device_sync(out)
     if unpack_fn is not None:
         return unpack_fn(out)[0]
@@ -320,9 +351,33 @@ def sharded_ntt(mesh, coeffs, nttops=None, inverse=False, N1=None):
     every rank (inverse=True gives the 1/N-scaled inverse NTT). Requires
     N1 % D == 0 and N2 % D == 0 (D = mesh size)."""
     nttops = nttops or dntt.ntt_fr
-    fs = _FourStep(mesh, nttops, coeffs.shape[-1], N1)
-    # out[:, k2, k1] = X[k2 N1 + k1]: flattening (k2, k1) IS natural order
-    return fs.gather_out(fs(fs.shard_in(coeffs), inverse))
+    _four_step_split(coeffs.shape[-1], mesh.size, N1)  # raises before any program
+
+    def body(x):
+        fs = _FourStep(mesh, nttops, x.shape[-1], N1)
+        # out[:, k2, k1] = X[k2 N1 + k1]: flattening (k2, k1) IS natural order
+        return fs.gather_out(fs(fs.shard_in(x), inverse))
+
+    return _program(mesh, f"ntt_{nttops.spec.name}_{int(inverse)}_{N1}", body, nttops)(coeffs)
+
+
+def _compute_h(mesh, nttops, g, a_raw, b_raw, c_raw):
+    f, r, spec = nttops.f, nttops.r, nttops.spec
+    dev, d = mesh.device, a_raw.shape[-1]
+    fs = _FourStep(mesh, nttops, d)
+    sc_g = fs.shard_in(nttops.coset_scale(d, g, dev))
+    sc_ginv = fs.shard_out(nttops.coset_scale(d, pow(g, -1, r), dev))
+    t_c_inv = pow((pow(g, d, r) - 1) % r, -1, r)
+    evs = []
+    for raw in (a_raw, b_raw, c_raw):
+        x = f.from_raw(fs.shard_in(raw))
+        coeffs = fs.gather_out(fs(x, inverse=True))
+        evs.append(fs(f.mul(fs.shard_in(coeffs), sc_g)))  # coset NTT
+    ae, be, ce = evs
+    hc = f.mul(f.sub(f.mul(ae, be), ce), spec.const(t_c_inv, ae.shape[1:], dev))
+    h = f.mul(fs(fs.shard_in(fs.gather_out(hc)), inverse=True), sc_ginv)
+    raw = f.to_raw(h.reshape(h.shape[0], -1)).reshape(h.shape)
+    return fs.gather_out(raw)
 
 
 def sharded_compute_h(mesh, nttops, a_raw, b_raw, c_raw, d: int, g: int):
@@ -330,24 +385,17 @@ def sharded_compute_h(mesh, nttops, a_raw, b_raw, c_raw, d: int, g: int):
     snark/accel.py::compute_h_evals with every length-d transform a
     four-step sharded NTT and the pointwise products on each rank's shard.
     Between transforms the data is gathered and re-sharded into the next
-    transform's input layout.
+    transform's input layout. One program from the raw limbs on this
+    rank's device to the gathered raw h limbs (the JAX package's from_raw,
+    mul, combine, ntt, to_raw and replicate programs).
 
     a_raw/b_raw/c_raw: RAW (non-Montgomery) [n, d] limbs of the domain
     evaluations. Returns the RAW canonical h coefficient limbs [n, d] as a
     numpy int32 array on every rank (truncate to d - 1 on the host)."""
-    f, r, spec = nttops.f, nttops.r, nttops.spec
-    dev = mesh.device
-    fs = _FourStep(mesh, nttops, d)
-    sc_g = fs.shard_in(nttops.coset_scale(d, g, dev))
-    sc_ginv = fs.shard_out(nttops.coset_scale(d, pow(g, -1, r), dev))
-    t_c_inv = pow((pow(g, d, r) - 1) % r, -1, r)
-    evs = []
-    for raw in (a_raw, b_raw, c_raw):
-        x = f.from_raw(fs.shard_in(torch.as_tensor(raw)))
-        coeffs = fs.gather_out(fs(x, inverse=True))
-        evs.append(fs(f.mul(fs.shard_in(coeffs), sc_g)))  # coset NTT
-    ae, be, ce = evs
-    hc = f.mul(f.sub(f.mul(ae, be), ce), spec.const(t_c_inv, ae.shape[1:], dev))
-    h = f.mul(fs(fs.shard_in(fs.gather_out(hc)), inverse=True), sc_ginv)
-    raw = f.to_raw(h.reshape(h.shape[0], -1)).reshape(h.shape)
-    return fs.gather_out(raw).cpu().numpy()
+    raws = [torch.as_tensor(x).to(mesh.device) for x in (a_raw, b_raw, c_raw)]
+    if raws[0].shape[-1] != d:
+        raise ValueError(f"{raws[0].shape[-1]} evaluations for a domain of {d}")
+    _four_step_split(d, mesh.size)
+    h = _program(mesh, f"compute_h_{nttops.spec.name}_{g}",
+                 lambda a, b, c: _compute_h(mesh, nttops, g, a, b, c), nttops)(*raws)
+    return h.cpu().numpy()

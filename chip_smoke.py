@@ -56,7 +56,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      inputs and on 1,024 pairs (True, and False when tampered),
      entry.dryrun_multichip, and a size-1 set_mesh that leaves the
      accelerator's launches unchanged; seconds per function and launches
-     by limb count;
+     by limb count. Each function's device work is one CUDA graph with its
+     NCCL collectives: every function is called until its graphs replay
+     (eager, capture, replay), each call's result equal to the first's;
+     the graphs are checked and dropped before the group is destroyed;
   9. hash_verify: hashing-included batch verification at the JAX hash
      bench's configuration (16,384 messages, 100 validators, 24 counters,
      compat mode) through ops/bls.py::batch_verify_messages_device, for the
@@ -73,7 +76,18 @@ Phases (each prints one line or more; any failure exits non-zero):
      validators, per-epoch extra_data, composite hashing on the card, c = 4,
      17-byte exponents): every epoch True, one planted bad signature flips
      exactly its epoch; seconds of hashing plus verification;
- 11. epoch_snark: the epoch SNARK at the reference's e2e configuration
+ 11. strategies: scripts/bench_strategies.py, the reference's four
+     batch-BLS strategies, at its shape (300 blocks x 20 fresh validators a
+     block, c = 4) through the script's own functions: derive's keys,
+     signatures and aggregates equal the host's at sampled lanes and
+     blocks and in total; per strategy, block hashing on the card
+     included, a first call (eager) and a second (the capture) True, 2
+     timed replays, its own tamper False, and a compensating forgery (two
+     signatures of one block shifted by +D and -D, the aggregates
+     recomputed) True for the two aggregate screenings and False for the
+     batch and individual verifications; one line per strategy with
+     seconds, launches, peak memory and the card;
+ 12. epoch_snark: the epoch SNARK at the reference's e2e configuration
      (crates/epoch-snark/tests/e2e.rs: 4 validators, 1 fault, 2
      transitions, one SNARK) through snark/api.py on the card: first one
      BW6-761 G2 fixed-base batch and G2 MSM against hostmath/bw6.py; then
@@ -87,7 +101,7 @@ Phases (each prints one line or more; any failure exits non-zero):
      the 2-SNARK helper on the BLS12-377 engine: setup of HashToBits(2)
      and generate_hash_helper on the card, its proof verified against the
      public inputs the helper statement fixes;
- 12. the `kernels` line and the last line: {"ok": true, "device": {...}}.
+ 13. the `kernels` line and the last line: {"ok": true, "device": {...}}.
 
 Every program that runs as a CUDA graph (utils/aotcache.py) is checked in
 the phase that called it, at its largest shape there: on the arguments of
@@ -163,6 +177,7 @@ from celo_bls_snark_tpu_torch.parallel import distributed as pdist  # noqa: E402
 from celo_bls_snark_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_hash_verify as hash_bench  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_msm_ntt as prover  # noqa: E402
+from celo_bls_snark_tpu_torch.scripts import bench_strategies as strategies  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import prof_field  # noqa: E402
 from celo_bls_snark_tpu_torch.relations.r1cs import ConstraintSystem  # noqa: E402
 from celo_bls_snark_tpu_torch.snark import api  # noqa: E402
@@ -218,16 +233,19 @@ PLAIN = {"mont_mul": F._mul_words_plain, "mont_redc": F._redc_words_plain,
 # Hashing at 16,384 messages: round 1's exponentiation and Legendre zero
 # test (5 counters x 16,384 lanes), the cofactor multiply's complete adds
 # (6 x 16,384), the Tonelli-Shanks table matches (to_raw at 16,384), the
-# Pedersen CRH's mixed adds (4 x 8 chunk lanes x 16,384)
+# Pedersen CRH's mixed adds (4 x 8 chunk lanes x 16,384). Strategies at
+# 300 x 20: the individual strategy's Miller doubling step (6 Fq2 products,
+# 18 x 24,000 lanes) and its 12,000 f12_is_one zero tests (12 x 12,000)
 L_MSM = 1 << 15
 L_H2G = 16384
+L_STRAT = 24000
 TIMED = {
     "mont_mul": [(25, 2), (25, 108), (25, 12288), (25, 1 << 16), (25, 1 << 19),
                  (25, 1 << 20), (17, 1 << 19), (49, L_MSM), (49, 5 * L_MSM),
                  (49, 6 * L_MSM), (49, 1 << 20), (25, 5 * L_H2G), (25, 6 * L_H2G),
-                 (25, 32 * L_H2G)],
+                 (25, 32 * L_H2G), (25, 18 * L_STRAT)],
     "mont_redc": [(25, 2), (25, 12), (25, 1 << 20), (17, 1 << 20), (49, 1 << 20),
-                  (25, L_H2G), (25, 5 * L_H2G)],
+                  (25, L_H2G), (25, 5 * L_H2G), (25, 6 * L_STRAT)],
     "mont_mul_tc": [(25, 1 << 19), (25, 1 << 20), (17, 1 << 19), (49, L_MSM),
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
@@ -440,12 +458,12 @@ def phase_kernels():
     return rows, worst
 
 
-def tamper_first_lane(pt):
-    """Replace lane 0 of a G1 projective batch by its double: still a
-    subgroup point, but no longer the signature of that message."""
-    first = tree_map(lambda x: x[:, :1], pt)
-    doubled = dc.g1.double(first)
-    return tree_map(lambda d, x: torch.cat([d, x[:, 1:]], dim=-1), doubled, pt)
+def double_lane(pt, lane=0):
+    """Replace one lane of a G1 projective batch by its double: still a
+    subgroup point, but no longer the signature (or aggregate) it was."""
+    doubled = dc.g1.double(tree_map(lambda x: x[:, lane:lane + 1], pt))
+    return tree_map(lambda d, x: torch.cat([x[:, :lane], d, x[:, lane + 1:]], dim=-1),
+                    doubled, pt)
 
 
 def phase_entry():
@@ -453,7 +471,7 @@ def phase_entry():
     st = port_entry.verify_stages(*args)
     if not bool(st["ok"][0]):
         fail("entry(): verification on the card returned False")
-    bad = (tamper_first_lane(args[0]),) + tuple(args[1:])
+    bad = (double_lane(args[0]),) + tuple(args[1:])
     if bool(fn(*bad)[0]):
         fail("entry(): tampered batch verified True on the card")
     cpu_args = port_entry.example_inputs(device="cpu")
@@ -662,7 +680,7 @@ def phase_main(n_messages=524288, n_validators=100, n_iter=2,
             fail("main path: the staged pipeline's graph differs from its eager run")
     if next(iter(staged.entries.values())).replays != 1:
         fail("main path: the staged pipeline did not replay its graph")
-    if bool(bench.verify(tamper_first_lane(sigs), hashes, apk)[0]):
+    if bool(bench.verify(double_lane(sigs), hashes, apk)[0]):
         fail("main path: tampered batch verified True through the graph")
     metric = bench.timed(n_messages, sigs, hashes, apk, n_iter=n_iter)
     torch.cuda.synchronize()
@@ -757,7 +775,7 @@ def phase_hash_verify(n_messages=16384, n_validators=100, n_iter=2,
             fail(f"hash_verify ({hasher_name}): lanes {bad[:8]} differ from the "
                  f"host TryAndIncrementCIP22 ({len(bad)} of {len(lanes)})")
         # the second call of the path's programs: captured and replayed
-        if bool(hash_bench.verify(tamper_first_lane(sigs), apk_aff, msgs, composite)[0]):
+        if bool(hash_bench.verify(double_lane(sigs), apk_aff, msgs, composite)[0]):
             fail(f"hash_verify ({hasher_name}): the tampered batch verified True")
         if not any(e.jit.tag == "bls_grouped_1" and e.replays for e in aotcache.entries()):
             fail(f"hash_verify ({hasher_name}): the tampered batch did not replay "
@@ -854,7 +872,119 @@ def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
           "bad_epoch": bad_epoch, "only_bad_epoch_false": True})
     graph_lines("strict_verify")
     drop_graphs("strict_verify")
-    return launches
+    return launches, hs_host
+
+
+def phase_strategies(hashes, card, n_blocks=300, n_validators=20, n_iter=2,
+                     seed=20261021, n_sample=8):
+    """The reference's four-strategy batch-BLS bench at its shape through
+    scripts/bench_strategies.py's own functions: `hashes` are the host
+    hashes of its block messages (strict_verify's). derive's first call
+    (eager) makes the keys, signatures and aggregates on the card; they
+    equal the host's at sampled lanes and blocks, and the total. Then per
+    strategy, with the block hashing on the card in every call: a first
+    call (eager) and a second (the capture) that are True, `n_iter` timed
+    replays, the strategy's own tamper (False), and a compensating forgery
+    (two signatures of one block shifted by +D and -D, the aggregates
+    recomputed by derive's sums: screenings True, the others False).
+    Returns the launches of the phase."""
+    B, V = n_blocks, n_validators
+    rnd = random.Random(seed)
+    t0 = time.perf_counter()
+    inp = strategies.build_inputs(B, V, seed, DEV, hashes=hashes)
+    torch.cuda.synchronize()
+    derive_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sks = inp["sks"]
+    sums = [sum(sks[b * V:(b + 1) * V]) % R for b in range(B)]
+    lanes = sorted(rnd.sample(range(B * V), n_sample))
+    blocks = sorted(rnd.sample(range(B), n_sample))
+
+    def at(tree, idx):
+        return tree_map(lambda x: x[:, torch.tensor(idx, device=DEV)], tree)
+
+    checks = {
+        "pk": (dc.g2_unpack(at(inp["pk_jac"], lanes)),
+               [hc.G2.mul(sks[j], G2_GENERATOR) for j in lanes]),
+        "sig": (dc.g1_unpack(at(inp["sig_jac"], lanes)),
+                [hc.G1.mul(sks[j], hashes[j // V]) for j in lanes]),
+        "apk_b": (dc.g2_unpack(at(inp["apk_b"], blocks)),
+                  [hc.G2.mul(sums[b], G2_GENERATOR) for b in blocks]),
+        "asig_b": (dc.g1_unpack(at(inp["asig_b"], blocks)),
+                   [hc.G1.mul(sums[b], hashes[b]) for b in blocks]),
+        "asig": (dc.g1_unpack(inp["asig"]),
+                 [hc.G1.msum([hc.G1.mul(k, h) for k, h in zip(sums, hashes)])]),
+    }
+    for what, (got, want) in checks.items():
+        if got != want:
+            fail(f"strategies: derived {what} differs from the host's")
+    host_s = time.perf_counter() - t0
+    names = list(strategies.ARGS)
+    bad_lane = rnd.randrange(B * V)
+    tamper = {names[0]: {"asig_b": double_lane(inp["asig_b"], rnd.randrange(B))},
+              names[1]: {"asig": double_lane(inp["asig"])},
+              names[2]: {"sig_jac": double_lane(inp["sig_jac"], bad_lane)},
+              names[3]: {"sig_jac": double_lane(inp["sig_jac"], bad_lane)}}
+    b0 = rnd.randrange(B)
+    D = hc.G1.mul(rnd.randrange(1, R), G1_GENERATOR)
+    shift = [None] * (B * V)
+    shift[b0 * V], shift[b0 * V + 1] = D, hc.G1.neg(D)
+    sig_forged = dc.g1.add(inp["sig_jac"], dc.g1_pack(shift, DEV))
+    asig_b_forged, asig_forged = strategies.sig_sums(sig_forged, B)
+    forged = {"sig_jac": sig_forged, "asig_b": asig_b_forged, "asig": asig_forged}
+    screening = names[:2]
+    total = {}
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read just
+        after: (its output, seconds, launches that ran), the launches also
+        added to the phase's total."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        add_launches(total, run_launches())
+        return out, dt, {"python_issued": launch_counts(),
+                         "replayed": aotcache.graph_launches()}
+
+    for name, fn in strategies.make_strategies(inp):
+        torch.cuda.reset_peak_memory_stats()
+        first, first_s, first_launches = counted(lambda: bool(fn()))
+        require_path_kernels(f"strategies ({name})", first_launches["python_issued"])
+        second, capture_s, _ = counted(lambda: bool(fn()))
+        replays = []
+        for _ in range(n_iter):
+            ok, dt, timed = counted(lambda: bool(fn()))
+            replays.append((ok, dt))
+        tampered, _, _ = counted(lambda: bool(fn(**tamper[name])))
+        forged_ok, _, _ = counted(lambda: bool(fn(**forged)))
+        if not (first and second and all(ok for ok, _ in replays)):
+            fail(f"strategies: {name!r} returned False on honest inputs")
+        if tampered:
+            fail(f"strategies: {name!r} returned True on its tamper")
+        if forged_ok != (name in screening):
+            fail(f"strategies: {name!r} returned {forged_ok} on the compensating "
+                 f"forgery, expected {name in screening}")
+        seconds = sum(dt for _, dt in replays) / n_iter
+        line({"phase": "strategies", "strategy": name, "blocks": B, "validators": V,
+              "ok": True, "tampered_ok": False, "forged_ok": forged_ok,
+              "first_s": first_s, "capture_call_s": capture_s,
+              "seconds": seconds, "messages_per_s": B / seconds, "replays_timed": n_iter,
+              "first_call_launches": first_launches,
+              "replay_call_launches": timed,
+              "launches_note": "per kernel, issued from Python and replayed from "
+                               "graphs; replay_call_launches: the last timed call",
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "card": card})
+    line({"phase": "strategies_inputs", "blocks": B, "validators": V, "derive_s": derive_s,
+          "host_check_s": host_s, "host_checked_lanes": lanes,
+          "host_checked_blocks": blocks, "derived_equal_host": True,
+          "forged_block": b0, "card": card})
+    graph_lines("strategies")
+    drop_graphs("strategies")
+    return total
 
 
 def g2_route_check(n_points=64, seed=20261019):
@@ -1168,7 +1298,7 @@ def mesh_pairings(mesh, main_inputs):
     for name, sig, h_aff, apk_aff in (("entry_9_pairs", sig8, hashes8, apk8),
                                       ("batch_1024_pairs", sig1k, hashes1k, apk1k)):
         for tampered in (False, True):
-            s = tamper_first_lane(sig) if tampered else sig
+            s = double_lane(sig) if tampered else sig
             asig = dc.g1.to_affine(pmesh.sharded_msum_g1(mesh, s))
             p = bench.dbls.cat_lanes(asig, h_aff)
             q = bench.dbls.cat_lanes(negg2, apk_aff)
@@ -1205,6 +1335,13 @@ def set_mesh_check(mesh, seed):
     return same, runs[1][0]
 
 
+# the tags of the mesh path's programs (parallel/mesh.py::_program), each
+# called until it replays
+MESH_PROGRAMS = ("mesh_compute_h_", "mesh_ntt_fr253_0", "mesh_ntt_fr253_1",
+                 "mesh_ntt_fq377_0", "mesh_ntt_fq377_1", "mesh_pip_bw6_g1",
+                 "mesh_msum_g1", "mesh_pairing_check")
+
+
 def phase_mesh(state, main_inputs, seed=20261020):
     """The mesh (parallel/) at world size 1 on a real NCCL group, at the
     prover's width on the prover phase's own inputs and results. With the
@@ -1236,25 +1373,63 @@ def phase_mesh(state, main_inputs, seed=20261020):
                       "fq377": (dntt.ntt_bw6, raws[0], evals[0])}
             xs = {k: ops.f.from_raw(raw) for k, (ops, raw, _) in inputs.items()}
             torch.cuda.synchronize()
-            # the mesh path, counts set to 0 just before and read just after
+            # the mesh path, counts set to 0 just before and read just after:
+            # each function called until its programs replay (the first call
+            # of a key runs eagerly, the second captures and replays, the
+            # third replays), every call's result the same
             reset_counts()
-            # the first call builds the four-step twiddles; the second is warm
-            for key in ("sharded_compute_h", "sharded_compute_h_warm"):
-                h_raw, secs[key] = card_s(lambda: pmesh.sharded_compute_h(
-                    mesh, dntt.ntt_bw6, *raws, d, BW6_761_ENGINE.fr_generator))
-            fwd, back = {}, {}
+            calls = ("eager", "capture", "replay")
+            h_runs = []
+            for call in calls:
+                h_raw, secs[f"sharded_compute_h_{call}"] = card_s(
+                    lambda: pmesh.sharded_compute_h(mesh, dntt.ntt_bw6, *raws, d,
+                                                    BW6_761_ENGINE.fr_generator))
+                h_runs.append(h_raw)
+            fwd_runs, back_runs = {}, {}
             for k, (ops, _, _) in inputs.items():
-                fwd[k], secs[f"four_step_ntt_{k}"] = card_s(
-                    lambda: pmesh.sharded_ntt(mesh, xs[k], ops))
-                back[k], secs[f"four_step_intt_{k}"] = card_s(
-                    lambda: pmesh.sharded_ntt(mesh, fwd[k], ops, inverse=True))
-            point, secs["sharded_msm_pippenger"] = card_s(lambda: pmesh.sharded_msm_pippenger(
-                mesh, state["bases"], state["scalars"], curve=dc.bw6_g1, nbits=377))
-            verdicts, secs["pairing_checks"] = card_s(lambda: mesh_pairings(mesh, main_inputs))
+                fwd_runs[k], back_runs[k] = [], []
+                for call in calls:
+                    f_k, secs[f"four_step_ntt_{k}_{call}"] = card_s(
+                        lambda: pmesh.sharded_ntt(mesh, xs[k], ops))
+                    b_k, secs[f"four_step_intt_{k}_{call}"] = card_s(
+                        lambda: pmesh.sharded_ntt(mesh, f_k, ops, inverse=True))
+                    fwd_runs[k].append(f_k)
+                    back_runs[k].append(b_k)
+            pip_runs = []
+            for call in calls:
+                pt, secs[f"sharded_msm_pippenger_{call}"] = card_s(
+                    lambda: pmesh.sharded_msm_pippenger(
+                        mesh, state["bases"], state["scalars"], curve=dc.bw6_g1, nbits=377))
+                pip_runs.append(pt)
+            # each pass checks two shapes honest and tampered: the first pass
+            # runs each key eagerly, then captures it; the second replays
+            pair_runs = []
+            for call in ("eager_and_capture", "replay"):
+                v, secs[f"pairing_checks_{call}"] = card_s(
+                    lambda: mesh_pairings(mesh, main_inputs))
+                pair_runs.append(v)
             _, secs["dryrun_multichip"] = card_s(lambda: port_entry.dryrun_multichip(mesh))
             launches, by_n = run_launches(), launch_counts_by_n()
             require_path_kernels("mesh", launches)
+            mesh_graphs = {f"{e.jit.tag} {aotcache.key_str(e.key)}": e.replays
+                           for e in aotcache.entries() if e.jit.tag.startswith("mesh_")}
+            # a CPU rehearsal (gloo) runs the bodies: graphs only on the card
+            for prefix in MESH_PROGRAMS if DEV.type == "cuda" else ():
+                if not any(k.startswith(prefix) and n for k, n in mesh_graphs.items()):
+                    fail(f"mesh: no replayed graph of {prefix}* on {backend}: {mesh_graphs}")
+            if not (all((h == h_runs[0]).all() for h in h_runs)
+                    and all(same_leaves(x, r[0]) for r in (*fwd_runs.values(),
+                                                           *back_runs.values()) for x in r)
+                    and all(p == pip_runs[0] for p in pip_runs)
+                    and all(v == pair_runs[0] for v in pair_runs)):
+                fail("mesh: a replayed graph's result differs from the eager run's")
+            h_raw, point, verdicts = h_runs[0], pip_runs[0], pair_runs[0]
+            fwd = {k: r[0] for k, r in fwd_runs.items()}
+            back = {k: r[0] for k, r in back_runs.items()}
             same_route, route_launches = set_mesh_check(mesh, seed)
+            # every program of the phase checked while its communicator is up
+            graph_lines("mesh")
+            drop_graphs("mesh")
         finally:
             pdist.shutdown()
     if not (h_raw.astype(np.uint16)[:, : d - 1] == state["h"].limbs).all():
@@ -1270,8 +1445,10 @@ def phase_mesh(state, main_inputs, seed=20261020):
         for j in (1, d // 2 + 3):
             if ops.spec.unpack(fwd[k][:, j:j + 1])[0] != prover.horner(vals, pow(w, j, ops.r), ops.r):
                 fail(f"mesh: the four-step NTT over {k} differs from the host at lane {j}")
-        ntt_rows[k] = {"four_step_s": secs[f"four_step_ntt_{k}"], "radix2_s": t_radix2,
-                       "four_step_inverse_s": secs[f"four_step_intt_{k}"]}
+        ntt_rows[k] = {"four_step_s": {c: secs[f"four_step_ntt_{k}_{c}"] for c in calls},
+                       "radix2_s": t_radix2,
+                       "four_step_inverse_s": {c: secs[f"four_step_intt_{k}_{c}"]
+                                               for c in calls}}
     if point != state["point"]:
         fail("mesh: the sharded Pippenger MSM differs from the single card's")
     want = {"entry_9_pairs": True, "entry_9_pairs_tampered": False,
@@ -1287,9 +1464,8 @@ def phase_mesh(state, main_inputs, seed=20261020):
           "h_equal_compute_h_evals": True, "ntt_equal_radix2_and_host": True,
           "msm_equal_single_card": True, "verdicts": verdicts,
           "dryrun_multichip": True, "size1_set_mesh_launches": route_launches,
-          "size1_set_mesh_same_route": True})
-    graph_lines("mesh")
-    drop_graphs("mesh")
+          "size1_set_mesh_same_route": True, "graphs_replays": mesh_graphs,
+          "replays_equal_eager": True})
     return launches
 
 
@@ -1305,7 +1481,8 @@ def main():
     by_path["mesh"] = phase_mesh(prover_state, main_inputs)
     del prover_state, main_inputs
     by_path["hash_verify"] = phase_hash_verify()
-    by_path["strict_verify"] = phase_strict_verify()
+    by_path["strict_verify"], block_hashes = phase_strict_verify()
+    by_path["strategies"] = phase_strategies(block_hashes, smi)
     by_path["epoch"], by_path["epoch_helper"] = phase_epoch_snark(order=list(by_path))
     out = []
     for name, per_width in rows.items():

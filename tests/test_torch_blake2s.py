@@ -11,6 +11,8 @@ from celo_bls_snark_tpu.ops import blake2s as jb
 from celo_bls_snark_tpu_torch.hashers.direct import DirectHasher
 from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN
 from celo_bls_snark_tpu_torch.ops import blake2s as tb
+from celo_bls_snark_tpu_torch.utils import aotcache
+from torch_capture_guard import rehearse_captures
 
 torch.set_num_threads(1)
 
@@ -62,6 +64,18 @@ def test_direct_hash_batch_equals_direct_hasher(length):
     assert tb.direct_hash_batch(msgs, 64, SIG_DOMAIN, "cpu") == want
 
 
+@pytest.mark.parametrize("length,out_size", [(0, 64), (150, 80)])
+def test_direct_hash_batch_runs_clean_under_the_capture_guard(length, out_size):
+    """direct_hash_batch's CRH and XOF as one program per message length,
+    output size and domain: an eager call, then the body again under the
+    capture guard (tests/torch_capture_guard.py), gives the host bytes."""
+    msgs = messages(length, 400 + length)
+    want = [DirectHasher().hash(SIG_DOMAIN, m, out_size) for m in msgs]
+    with rehearse_captures() as seen:
+        assert tb.direct_hash_batch(msgs, out_size, SIG_DOMAIN, "cpu") == want
+    assert seen == [f"direct_hash_{length}_{out_size}_{SIG_DOMAIN.hex()}"]
+
+
 def test_pack_messages_rejects_unequal_lengths():
     with pytest.raises(ValueError):
         tb.pack_messages([b"ab", b"abc"])
@@ -76,5 +90,10 @@ def test_blake2s_card_equals_cpu():
     cpu = tb.blake2xs_batch(tb.words_to_device(words, "cpu"), 150, 64, person=PERSON)
     card = tb.blake2xs_batch(tb.words_to_device(words, "cuda"), 150, 64, person=PERSON)
     assert torch.equal(card.cpu(), cpu)
-    assert tb.direct_hash_batch(msgs, 64, SIG_DOMAIN, "cuda") == \
-        tb.direct_hash_batch(msgs, 64, SIG_DOMAIN, "cpu")
+    want = tb.direct_hash_batch(msgs, 64, SIG_DOMAIN, "cpu")
+    aotcache.clear()
+    # eager, captured and replayed, replayed: the replays equal the eager run
+    for _ in range(3):
+        assert tb.direct_hash_batch(msgs, 64, SIG_DOMAIN, "cuda") == want
+    (entry,) = [e for e in aotcache.entries() if e.jit.tag.startswith("direct_hash_150_64")]
+    assert entry.replays == 2

@@ -10,6 +10,7 @@ import pytest
 from celo_bls_snark_tpu import bls as jbls
 from celo_bls_snark_tpu.bls import test_helpers as jhelpers
 from celo_bls_snark_tpu import hash_to_curve as jh2c
+from celo_bls_snark_tpu import hashers as jhashers
 from celo_bls_snark_tpu.utils import bits as jbits
 from celo_bls_snark_tpu.utils import serialization as jser
 from celo_bls_snark_tpu.utils.rngs import XorShiftRng as JXorShiftRng
@@ -18,6 +19,7 @@ from celo_bls_snark_tpu_torch import bls as tbls
 from celo_bls_snark_tpu_torch import keys as tkeys_reexport
 from celo_bls_snark_tpu_torch.bls import test_helpers as thelpers
 from celo_bls_snark_tpu_torch import hash_to_curve as th2c
+from celo_bls_snark_tpu_torch import hashers as thashers
 from celo_bls_snark_tpu_torch.hostmath import curves as hc
 from celo_bls_snark_tpu_torch.hostmath.params import G1_GENERATOR, G2_GENERATOR, P, R
 from celo_bls_snark_tpu_torch.utils import bits as tbits
@@ -257,3 +259,29 @@ def test_test_helpers_equal_jax():
     assert [s.pt for s in got] == [s.pt for s in jhelpers.sign_batch(hs, jsks)]
     assert thelpers.sum_g1(hs) == jhelpers.sum_g1(hs)
     assert thelpers.sum_g2([a.pt for a in apks]) == jhelpers.sum_g2([a.pt for a in apks])
+
+
+def test_hasher_base_class():
+    """hashers.Hasher, exported as the JAX module exports it: a subclass
+    whose crh and xof delegate to the port's DirectHasher hashes to the JAX
+    DirectHasher's bytes through the base's hash; the base's crh and xof
+    raise NotImplementedError."""
+    assert "Hasher" in thashers.__all__ and "Hasher" in jhashers.__all__
+
+    class Delegating(thashers.Hasher):
+        direct = thashers.DirectHasher()
+
+        def crh(self, domain, message, xof_digest_length):
+            return self.direct.crh(domain, message, xof_digest_length)
+
+        def xof(self, domain, hashed_message, xof_digest_length):
+            return self.direct.xof(domain, hashed_message, xof_digest_length)
+
+    rnd = random.Random(41)
+    for n, out in ((0, 64), (37, 96), (150, 32)):
+        msg = bytes(rnd.randrange(256) for _ in range(n))
+        assert Delegating().hash(b"ULforprf", msg, out) == \
+            jhashers.DirectHasher().hash(b"ULforprf", msg, out)
+    for method in (thashers.Hasher().crh, thashers.Hasher().xof):
+        with pytest.raises(NotImplementedError):
+            method(b"ULforprf", b"msg", 64)

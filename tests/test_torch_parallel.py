@@ -28,6 +28,7 @@ from celo_bls_snark_tpu_torch.hostmath import curves as hc
 from celo_bls_snark_tpu_torch.hostmath.params import G1_GENERATOR, R
 from celo_bls_snark_tpu_torch.ops import bls as dbls
 from celo_bls_snark_tpu_torch.ops import curve as dc
+from celo_bls_snark_tpu_torch.ops import msm as dmsm
 from celo_bls_snark_tpu_torch.ops import ntt as dntt
 from celo_bls_snark_tpu_torch.ops import pairing as dp
 from celo_bls_snark_tpu_torch.ops.field import FQ, FR
@@ -36,6 +37,7 @@ from celo_bls_snark_tpu_torch.parallel import mesh as pmesh
 from celo_bls_snark_tpu_torch.snark import accel as taccel
 from celo_bls_snark_tpu_torch.snark.groth16 import BLS12_377_ENGINE, _root_of_unity, fft
 from celo_bls_snark_tpu_torch.utils.tree import tree_leaves
+from torch_capture_guard import rehearse_captures
 
 # one thread: the plain versions loop over small tensors, and the test
 # suite's parallel workers would otherwise contend for every core
@@ -272,6 +274,60 @@ def test_set_mesh_checks_the_device_and_warns_when_it_cannot_route():
     finally:
         accel.set_mesh(None)
     assert accel.mesh is None and accel.mesh_size == 1
+
+
+# --- the programs as CUDA graphs ------------------------------------------------------
+
+def _rehearse_mesh_program(name, one, x):
+    """(got, want, tag) of one sharded function on the one-rank CPU mesh."""
+    cpu = "D1_r0_cpu"
+    if name == "msum_g2":
+        got = dc.g2_unpack(pmesh.sharded_msum_g2(one, dc.g2_pack(x["msum_g2_pts"], CPU)))[0]
+        return got, hc.G2.msum(x["msum_g2_pts"]), f"mesh_msum_g2_{cpu}"
+    if name == "msm_g1_dense":
+        pts, sc = x["msum_pts"][:8], x["dense_scalars"]
+        bits = dbls.scalars_to_bits(sc, CPU, W.NBITS_SHORT)
+        got = dc.g1_unpack(pmesh.sharded_msm_g1(one, bits, dc.g1_pack(pts, CPU)))[0]
+        return got, hc.G1.msum([hc.G1.mul(s, p) for s, p in zip(sc, pts)]), \
+            f"mesh_msm_g1_dense_{cpu}"
+    if name == "pippenger":
+        pts, sc = x["pip_pts"][:40], x["pip_scalars"][:40]
+        got = pmesh.sharded_msm_pippenger(one, pts, sc, c=4, L=4, nbits=W.NBITS_SHORT)
+        return got, hc.G1.msm(sc, pts, c=8), f"mesh_pip_g1_c4_L4_{cpu}"
+    if name == "miller_product":
+        # the pairing check's program is this body and the final
+        # exponentiation, which tests/test_torch_slice.py holds under the guard
+        p_aff = dbls.pack_g1_affine(x["pair_p"][:2], CPU)
+        q_aff = dbls.pack_g2_affine(x["pair_q"][:2], CPU)
+        got = tree_leaves(pmesh.sharded_miller_product(one, p_aff, q_aff))
+        want = tree_leaves(dp.f12_product(dp.miller_loop_batch(p_aff, q_aff)))
+        return [t.tolist() for t in got], [t.tolist() for t in want], \
+            f"mesh_miller_product_{cpu}"
+    if name == "ntt_bw6_inverse":
+        x0 = FQ.pack(x["ntt_bw6"], CPU)
+        got = pmesh.sharded_ntt(one, x0, dntt.ntt_bw6, inverse=True)
+        return FQ.unpack(dntt.ntt_bw6.ntt(got)), x["ntt_bw6"], f"mesh_ntt_fq377_1_None_{cpu}"
+    assert name == "compute_h"
+    g = BLS12_377_ENGINE.fr_generator
+    raws = [FR.pack_raw(e, CPU) for e in x["h_evals"]]
+    got = pmesh.sharded_compute_h(one, dntt.ntt_fr, *raws, W.D_H, g)
+    want = host_h_poly(BLS12_377_ENGINE, *x["h_evals"], W.D_H, g)
+    return dmsm.RawScalarVec(got.astype(np.uint16)[:, :W.D_H - 1], FR).to_ints(), want, \
+        f"mesh_compute_h_fr253_{g}_{cpu}"
+
+
+@pytest.mark.parametrize("name", ["msum_g2", "msm_g1_dense", "pippenger", "miller_product",
+                                  "ntt_bw6_inverse", "compute_h"])
+def test_mesh_programs_run_clean_under_the_capture_guard(name, one, x):
+    """Each sharded function's program (tests/torch_capture_guard.py: an
+    eager call, then the body again under the guard, as the card's first
+    call and capture run it) on the one-rank mesh, with the tag that names
+    the mesh's size, rank and device: the guarded result equals the host
+    oracle's or the single-card function's."""
+    with rehearse_captures() as seen:
+        got, want, tag = _rehearse_mesh_program(name, one, x)
+    assert got == want
+    assert tag in seen
 
 
 # --- bring-up ------------------------------------------------------------------------
