@@ -15,7 +15,7 @@ import torch
 from ..hostmath import curves as hostcurves
 from ..hostmath.params import G2_GENERATOR
 from ..utils import aotcache
-from ..utils.profiling import device_sync, stage
+from ..utils.profiling import device_span, device_sync, stage
 from ..utils.tree import tree_map
 from .field import FQ
 from . import curve as dc
@@ -84,7 +84,8 @@ def batch_verify_grouped_stages(sigs_jac, hashes_jac, apks_aff, groups: int,
 
     Each stage runs as `stage(name, fn)`, which must return `fn()`; a
     caller passes its own to time or count the stages (fold, to_affine,
-    miller, product, final_exp, is_one) of exactly this pipeline."""
+    miller, product, final_exp, is_one) of exactly this pipeline. The fold
+    and to_affine are the device span gpu.verify.legs."""
 
     def fold():
         # [sig groups | hash groups] -> 2G partial sums in one fused fold
@@ -96,8 +97,9 @@ def batch_verify_grouped_stages(sigs_jac, hashes_jac, apks_aff, groups: int,
         asig = dc.g1.msum(sig_parts) if groups > 1 else sig_parts
         return cat_lanes(asig, hsums)
 
-    folded = stage("fold", fold)
-    p_aff = stage("to_affine", lambda: dc.g1.to_affine(folded))
+    with device_span("gpu.verify.legs", sigs_jac):
+        folded = stage("fold", fold)
+        p_aff = stage("to_affine", lambda: dc.g1.to_affine(folded))
     q_aff = cat_lanes(neg_g2_gen_affine(p_aff[0].device), apks_aff)
     miller = stage("miller", lambda: dp.miller_loop_batch(p_aff, q_aff))
     product = stage("product", lambda: dp.f12_product(miller))
@@ -223,14 +225,16 @@ def strict_batch_verify_device(expdigits, sigs_jac, pks_jac, hashes_aff,
     sigs_jac / pks_jac: projective G1/G2 batches [G*V];
     hashes_aff: G1 affine batch [G] (the per-epoch message hashes).
     Returns bool [G]: per-epoch results, as the reference's per-batch
-    result array."""
+    result array. The MSMs and the legs' affine forms are the device span
+    gpu.verify.legs."""
     from . import msm as dmsm
 
-    bsig = dmsm.straus_msm_groups(dc.g1, expdigits, sigs_jac, groups, c)
-    bpk = dmsm.straus_msm_groups(dc.g2, expdigits, pks_jac, groups, c)
-    negg2 = neg_g2_gen_affine(hashes_aff[0].device, groups)
-    p = _interleave(dc.g1.to_affine(bsig), hashes_aff)
-    q = _interleave(negg2, dc.g2.to_affine(bpk))
+    with device_span("gpu.verify.legs", sigs_jac):
+        bsig = dmsm.straus_msm_groups(dc.g1, expdigits, sigs_jac, groups, c)
+        bpk = dmsm.straus_msm_groups(dc.g2, expdigits, pks_jac, groups, c)
+        negg2 = neg_g2_gen_affine(hashes_aff[0].device, groups)
+        p = _interleave(dc.g1.to_affine(bsig), hashes_aff)
+        q = _interleave(negg2, dc.g2.to_affine(bpk))
     return verify_pairs_device(p, q)
 
 

@@ -41,7 +41,7 @@ from ..hash_to_curve.common import G1_BYTES, hash_length
 from ..hostmath.params import G1_COFACTOR, P
 from ..utils import aotcache
 from ..utils.devices import require_device
-from ..utils.profiling import stage
+from ..utils.profiling import device_span, stage
 from ..utils.tree import tree_map
 from . import blake2s as db
 from . import curve as dc
@@ -232,19 +232,21 @@ def _round_body(words, msg_len: int, domain: bytes, compat: bool, nc: int, m: in
     """One round's device program on its XOF message words [16 nblocks,
     nc m]: Blake2Xs XOF, candidate parse, Legendre validity,
     first-valid-counter selection, Tonelli-Shanks finish, sign select and
-    cofactor multiply. Returns (projective [m] tree, has [m] bool tensor)."""
-    xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
-    x, greatest, valid, w, t = _candidate_points(xof, compat)
-    vmat = valid.reshape(nc, m)
-    # the first valid counter (argmax: the first maximal index)
-    first = torch.argmax(vmat.to(torch.int32), dim=0)
-    has = vmat.any(dim=0)
-    lanes = first * m + torch.arange(m, device=x.device)
-    xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
-    y = _tonelli_shanks_finish(ts, ws)
-    y = _select_greatest(y, greatest[lanes])
-    pt = dc.g1.from_affine((xs, y))
-    return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
+    cofactor multiply. Returns (projective [m] tree, has [m] bool tensor).
+    On the card the device span gpu.h2g.round."""
+    with device_span("gpu.h2g.round", words):
+        xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
+        x, greatest, valid, w, t = _candidate_points(xof, compat)
+        vmat = valid.reshape(nc, m)
+        # the first valid counter (argmax: the first maximal index)
+        first = torch.argmax(vmat.to(torch.int32), dim=0)
+        has = vmat.any(dim=0)
+        lanes = first * m + torch.arange(m, device=x.device)
+        xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
+        y = _tonelli_shanks_finish(ts, ws)
+        y = _select_greatest(y, greatest[lanes])
+        pt = dc.g1.from_affine((xs, y))
+        return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
 
 
 def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,

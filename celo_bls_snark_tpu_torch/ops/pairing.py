@@ -22,6 +22,7 @@ kernel launches.
 import torch
 
 from ..hostmath.params import X
+from ..utils.profiling import device_span
 from ..utils.tree import tree_leaves, tree_map
 from .field import fq
 from . import tower as tw
@@ -89,27 +90,29 @@ def miller_loop_batch(p_aff, q_aff):
 
     p_aff: (xp, yp) Fq tensors [n, B]; q_aff: (xq, yq) Fq2 pairs.
     Lanes whose P or Q is the affine-zero point (the infinity encoding)
-    yield f = 1, matching arkworks' filtering of zero pairs.
+    yield f = 1, matching arkworks' filtering of zero pairs. On the card
+    the device span gpu.pairing.miller.
     """
     xp, yp = p_aff
     xq, yq = q_aff
     batch, device = xp.shape[1:], xp.device
-    inf_p = fq.is_zero(xp) & fq.is_zero(yp)
-    inf_q = tw.f2_is_zero(xq) & tw.f2_is_zero(yq)
-    skip = inf_p | inf_q
-    xp_neg = fq.neg(xp)
-    xp_neg3 = fq.mul_small(xp_neg, 3)
+    with device_span("gpu.pairing.miller", xp):
+        inf_p = fq.is_zero(xp) & fq.is_zero(yp)
+        inf_q = tw.f2_is_zero(xq) & tw.f2_is_zero(yq)
+        skip = inf_p | inf_q
+        xp_neg = fq.neg(xp)
+        xp_neg3 = fq.mul_small(xp_neg, 3)
 
-    f = tw.f12_ones(batch, device)
-    T = (xq, yq, tw.f2_ones(batch, device))
-    for bit in _X_BITS:
-        f = tw.f12_sq(f)
-        T, (c_a, c_w, c_w3) = _dbl_step(T, xp_neg3, yp)
-        f = tw.f12_mul_line(f, c_a, c_w, c_w3)
-        if bit:
-            T, (ca2, cw2, cw32) = _add_step(T, (xq, yq), xp_neg, yp)
-            f = tw.f12_mul_line(f, ca2, cw2, cw32)
-    return tw.f12_select(skip, tw.f12_ones(batch, device), f)
+        f = tw.f12_ones(batch, device)
+        T = (xq, yq, tw.f2_ones(batch, device))
+        for bit in _X_BITS:
+            f = tw.f12_sq(f)
+            T, (c_a, c_w, c_w3) = _dbl_step(T, xp_neg3, yp)
+            f = tw.f12_mul_line(f, c_a, c_w, c_w3)
+            if bit:
+                T, (ca2, cw2, cw32) = _add_step(T, (xq, yq), xp_neg, yp)
+                f = tw.f12_mul_line(f, ca2, cw2, cw32)
+        return tw.f12_select(skip, tw.f12_ones(batch, device), f)
 
 
 def f12_product(f):
@@ -149,21 +152,23 @@ def f12_powx(a, e: int, cyclo: bool = False):
 
 def final_exponentiation(f):
     """f^(3*(p^12-1)/r): easy part then the chain
-    (x-1)^2 (x+p) (x^2+p^2-1) + 3  ==  3*(p^4-p^2+1)/r."""
-    finv = tw.f12_inv(f)
-    m = tw.f12_mul(tw.f12_conj(f), finv)      # f^(p^6-1)
-    m = tw.f12_mul(tw.f12_frob_n(m, 2), m)    # ^(p^2+1)
-    # m is unitary from here on: cyclotomic squarings throughout the chains
-    t0 = f12_powx(f12_powx(m, X - 1, cyclo=True), X - 1, cyclo=True)
-    t1 = tw.f12_mul(f12_powx(t0, X, cyclo=True), tw.f12_frob(t0))  # ^(x+p)
-    t2 = tw.f12_mul(
-        tw.f12_mul(
-            f12_powx(f12_powx(t1, X, cyclo=True), X, cyclo=True),
-            tw.f12_frob_n(t1, 2),
-        ),
-        tw.f12_conj(t1),
-    )  # ^(x^2+p^2-1)
-    return tw.f12_mul(t2, tw.f12_mul(tw.f12_cyclo_sq(m), m))  # * m^3
+    (x-1)^2 (x+p) (x^2+p^2-1) + 3  ==  3*(p^4-p^2+1)/r. On the card the
+    device span gpu.pairing.final_exp."""
+    with device_span("gpu.pairing.final_exp", f):
+        finv = tw.f12_inv(f)
+        m = tw.f12_mul(tw.f12_conj(f), finv)      # f^(p^6-1)
+        m = tw.f12_mul(tw.f12_frob_n(m, 2), m)    # ^(p^2+1)
+        # m is unitary from here on: cyclotomic squarings throughout the chains
+        t0 = f12_powx(f12_powx(m, X - 1, cyclo=True), X - 1, cyclo=True)
+        t1 = tw.f12_mul(f12_powx(t0, X, cyclo=True), tw.f12_frob(t0))  # ^(x+p)
+        t2 = tw.f12_mul(
+            tw.f12_mul(
+                f12_powx(f12_powx(t1, X, cyclo=True), X, cyclo=True),
+                tw.f12_frob_n(t1, 2),
+            ),
+            tw.f12_conj(t1),
+        )  # ^(x^2+p^2-1)
+        return tw.f12_mul(t2, tw.f12_mul(tw.f12_cyclo_sq(m), m))  # * m^3
 
 
 def pairing_check_product(p_aff, q_aff):

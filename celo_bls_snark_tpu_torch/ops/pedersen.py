@@ -33,6 +33,7 @@ from ..hashers.composite import (
 )
 from ..hostmath import curves as hcurves
 from ..utils import aotcache
+from ..utils.profiling import stage
 from ..utils.tree import tree_map
 from . import edwards as ed
 from .field import fq
@@ -121,22 +122,29 @@ def _bh_device(table, idx, sign, Lc: int):
 
 def bh_crh_device(messages, device, Lc: int = 8):
     """Batched CRH evaluation: equal-length messages -> extended TE point
-    batch [B] on `device`. Lc = chunk lanes processed per step."""
-    idx, sign = bh_plan(messages)
-    N, B = idx.shape
+    batch [B] on `device`. Lc = chunk lanes processed per step. The plan
+    and its copy to the card are the host stage h2g.crh.plan."""
+    with stage("h2g.crh.plan"):
+        idx, sign = bh_plan(messages)
+        N, B = idx.shape
+        pad = (-N) % Lc
+        if pad:
+            id_slot = 4 * N
+            idx = np.concatenate([idx, np.full((pad, B), id_slot, np.int32)], axis=0)
+            sign = np.concatenate([sign, np.zeros((pad, B), bool)], axis=0)
+        idx = torch.from_numpy(idx.astype(np.int64)).to(device)
+        sign = torch.from_numpy(sign).to(device)
     table = bh_table(N, device)
-    pad = (-N) % Lc
-    if pad:
-        id_slot = 4 * N
-        idx = np.concatenate([idx, np.full((pad, B), id_slot, np.int32)], axis=0)
-        sign = np.concatenate([sign, np.zeros((pad, B), bool)], axis=0)
     fn = aotcache.jit(f"bh_crh_{N}_{Lc}", lambda t, i, s: _bh_device(t, i, s, Lc))
-    return fn(table, torch.from_numpy(idx.astype(np.int64)).to(device),
-              torch.from_numpy(sign).to(device))
+    return fn(table, idx, sign)
 
 
 def bh_crh_digests(messages, device, Lc: int = 8):
     """Batched composite-CRH digests: the serialized x-coordinates,
-    48 bytes LE each (composite.rs:80-86). Returns a list of bytes."""
-    out = ed.unpack_extended(bh_crh_device(messages, device, Lc))
-    return [int(x).to_bytes(48, "little") for x, _y in out]
+    48 bytes LE each (composite.rs:80-86). Returns a list of bytes. Their
+    making from the points read to the host is the host stage
+    h2g.crh.digest."""
+    points = tree_map(lambda t: t.cpu(), bh_crh_device(messages, device, Lc))
+    with stage("h2g.crh.digest"):
+        out = ed.unpack_extended(points)
+        return [int(x).to_bytes(48, "little") for x, _y in out]

@@ -62,6 +62,7 @@ from ..ops import pairing as dp
 from ..ops.hash_to_g1 import composite_crh_bytes, hash_to_g1_device
 from ..utils import aotcache
 from ..utils.devices import require_device
+from ..utils.profiling import device_span
 from ..utils.tree import tree_map
 
 C = 4  # the Straus window of strategy 3, in bits
@@ -180,9 +181,10 @@ def per_epoch_batch(B, expdigits, sig_jac, pk_jac, h_aff):
 
 
 def per_epoch_individual(sig_jac, pk_jac, h_per_val):
-    p = dbls._interleave(dc.g1.to_affine(sig_jac), dc.g1.to_affine(h_per_val))
-    negg2 = dbls.neg_g2_gen_affine(sig_jac[0].device, sig_jac[0].shape[-1])
-    q = dbls._interleave(negg2, dc.g2.to_affine(pk_jac))
+    with device_span("gpu.verify.legs", sig_jac):
+        p = dbls._interleave(dc.g1.to_affine(sig_jac), dc.g1.to_affine(h_per_val))
+        negg2 = dbls.neg_g2_gen_affine(sig_jac[0].device, sig_jac[0].shape[-1])
+        q = dbls._interleave(negg2, dc.g2.to_affine(pk_jac))
     return dbls.verify_pairs_device(p, q).all()
 
 

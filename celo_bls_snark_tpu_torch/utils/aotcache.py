@@ -57,6 +57,17 @@ launches that ran from Python; a capture's calls of the wrappers only record
 kernels, so a capture takes its counts back out. The launches of a graph
 (`Entry.info["port_kernels"]`) are added up per replay in graph_launches().
 
+Spans (utils/profiling.py): a capture runs fn inside the device span
+`gpu.graph`, so every graph records its own start and end events, and keeps
+the device spans that fn opened inside it (`Entry.pairs`, their names in
+`Entry.info["spans"]`; event-record nodes, not kernel nodes). A replay is
+the host stage `aot.launch` around CUDAGraph.replay() alone (the
+cudaGraphLaunch; a profiler's range is named `aot.launch:<tag>`); after it
+the graph's pairs are armed for profiling.report(). Pairs a previous replay
+left unread are read first, or dropped (`gpu.dropped`) where the card has
+not reached them: a loop that replays without a host read between replays
+loses samples and is never slowed.
+
 CPU tensors call fn directly, as the JAX AotJit passes straight to jit on
 the CPU backend; that happens only when the caller passes CPU tensors.
 There is no fallback: a capture or replay that fails raises with the tag and
@@ -71,6 +82,7 @@ import weakref
 
 import torch
 
+from . import profiling
 from .tree import tree_leaves, tree_map
 
 POOL_SHARE = 0.25  # of the card's memory, the most a device's pool keeps
@@ -174,14 +186,15 @@ class Entry:
     """One captured program: the graph, its static inputs and outputs, and
     what its capture measured."""
 
-    def __init__(self, jit, key, device, graph, inputs, outputs, info):
+    def __init__(self, jit, key, device, graph, inputs, outputs, info, pairs):
         self.jit = jit
         self.key = key
         self.device = device
         self.graph = graph
         self.inputs = inputs      # the static argument tree
         self.outputs = outputs    # the graph's output tree
-        self.info = info          # capture_s, kernels, port_kernels, pool_bytes
+        self.info = info          # capture_s, kernels, port_kernels, pool_bytes, spans
+        self.pairs = pairs        # the device spans' events that each replay records
         self.replays = 0
 
     @property
@@ -265,8 +278,10 @@ class AotJit:
                 if pool is None:
                     pool = _POOLS[device] = _Pool(device)
                 graph = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(graph, pool=pool.handle,
-                                      capture_error_mode="thread_local"):
+                with (torch.cuda.graph(graph, pool=pool.handle,
+                                       capture_error_mode="thread_local"),
+                      profiling.collect_spans() as pairs,
+                      profiling.device_span("gpu.graph", inputs)):
                     outputs = self.fn(*inputs)
                 kernels = _kernel_nodes(graph)
                 graph.instantiate()
@@ -286,11 +301,12 @@ class AotJit:
                 k.launches, k.launches_by_n = n, by_n
         pool.bytes += grown
         info = {"capture_s": capture_s, "kernels": kernels, "port_kernels": port,
-                "pool_bytes": grown}
+                "pool_bytes": grown, "spans": [p.name for p in pairs]}
         _log(f"MISS {self.tag} {key_str(key)} captured in {capture_s:.2f} s, "
              f"{'not measured' if kernels is None else kernels} kernels, "
              f"pool +{grown} bytes")
-        entry = self.entries[key] = Entry(self, key, device, graph, inputs, outputs, info)
+        entry = self.entries[key] = Entry(self, key, device, graph, inputs, outputs, info,
+                                          pairs)
         return entry
 
     def _replay(self, entry: Entry, args):
@@ -298,7 +314,12 @@ class AotJit:
             for dst, src in zip(tree_leaves(entry.inputs), tree_leaves(args)):
                 if isinstance(src, torch.Tensor) and src is not dst:
                     dst.copy_(src)
-            entry.graph.replay()
+            # the previous replay's device spans, read before this one
+            # records them again
+            profiling.settle(entry.pairs)
+            with profiling.stage("aot.launch", f"aot.launch:{self.tag}"):
+                entry.graph.replay()
+            profiling.arm(entry.pairs)
             out = tree_map(lambda t: t.clone(), entry.outputs)
         except Exception as e:
             raise RuntimeError(

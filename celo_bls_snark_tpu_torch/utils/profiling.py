@@ -1,14 +1,28 @@
 """Stage timing registry (the counterpart of the JAX package's
-utils/profiling.py).
+utils/profiling.py), on the host's clock and on the card's.
 
-`stage(name)` is a wall-clock scope; a stage that dispatched device work
+`stage(name)` is a host-clock scope; a stage that dispatched device work
 calls `device_sync` on its output before the scope ends, so the work is
-charged to the stage that issued it. Times accumulate in a process-global
-registry; `report()` snapshots it. `device_trace()` runs torch.profiler
-over the card and yields the profile; with Config.profile_trace_dir set it
-traces the host too, every stage a named range, and writes a Chrome trace
-there. `time_ms` times one call on the card between CUDA events, eagerly or
-from a replayed CUDA graph.
+charged to the stage that issued it. While a torch profiler runs, a stage
+is also a named range of its trace, on the clock of the card's kernels.
+
+`device_span(name, like)` times its body on the card: a pair of timing CUDA
+events on the current stream around it. Outside a capture the pair is
+recorded once; inside a CUDA graph capture it becomes two event-record
+nodes of the graph, recorded again by every replay (utils/aotcache.py
+collects a capture's pairs and arms them after each replay). A pair is
+never read where it is recorded: armed, it waits for report(), which reads
+every armed pair whose end has completed into the registry under its name,
+as a stage's time, and drops one not yet complete, counting it under
+`gpu.dropped` (`calls` = pairs dropped), so reading never waits. The names
+of the card's clock start with `gpu.`. On CPU tensors device_span does
+nothing.
+
+Times accumulate in a process-global registry; `report()` snapshots it.
+`device_trace()` runs torch.profiler over the card and yields the profile;
+with Config.profile_trace_dir set it traces the host too and writes a
+Chrome trace there. `time_ms` times one call on the card between CUDA
+events, eagerly or from a replayed CUDA graph.
 """
 
 import os
@@ -22,16 +36,25 @@ from .tree import tree_leaves
 
 _METRICS: dict = {}
 _TRACES = [0]  # traces written by this process
+_ARMED: dict = {}  # id -> a recorded Pair that report() has not read yet
+_CAPTURES: list = []  # per capture underway, the pairs its body recorded
+MAX_ARMED = 4096  # eager pairs past this are read (or dropped) at once
+DROPPED = "gpu.dropped"
+
+
+def _add(name: str, seconds: float) -> None:
+    ent = _METRICS.setdefault(name, {"calls": 0, "total_s": 0.0})
+    ent["calls"] += 1
+    ent["total_s"] += seconds
 
 
 @contextmanager
-def stage(name: str):
-    """Time a named stage (host clock); a named range in device_trace()'s
-    trace when Config.profile_trace_dir is set."""
-    cfg = get_config()
+def stage(name: str, label: "str | None" = None):
+    """Time a named stage (host clock). While a torch profiler runs it is
+    also a range of the trace, named `label` (default `name`)."""
     rng = None
-    if cfg.profile_trace_dir is not None:
-        rng = torch.profiler.record_function(name)
+    if torch.autograd._profiler_enabled():
+        rng = torch.profiler.record_function(label or name)
         rng.__enter__()
     t0 = time.perf_counter()
     try:
@@ -40,11 +63,80 @@ def stage(name: str):
         dt = time.perf_counter() - t0
         if rng is not None:
             rng.__exit__(None, None, None)
-        ent = _METRICS.setdefault(name, {"calls": 0, "total_s": 0.0})
-        ent["calls"] += 1
-        ent["total_s"] += dt
-        if cfg.profile:
+        _add(name, dt)
+        if get_config().profile:
             print(f"# stage {name}: {dt:.3f}s", flush=True)
+
+
+class Pair:
+    """The two timing events of one device span. external=True makes them
+    event-record nodes when recorded inside a capture; outside one PyTorch
+    records them as plain events."""
+
+    __slots__ = ("name", "start", "end")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.start = torch.cuda.Event(enable_timing=True, external=True)
+        self.end = torch.cuda.Event(enable_timing=True, external=True)
+
+
+@contextmanager
+def device_span(name: str, like):
+    """Time the body on the card under `name` (a `gpu.` name): on the
+    current stream of the device of `like`, a tensor or a tree of them;
+    nothing when its first tensor is not on a CUDA card."""
+    leaf = next((x for x in tree_leaves(like) if isinstance(x, torch.Tensor)), None)
+    if leaf is None or not leaf.is_cuda:
+        yield
+        return
+    stream = torch.cuda.current_stream(leaf.device)
+    pair = Pair(name)
+    pair.start.record(stream)
+    yield
+    pair.end.record(stream)
+    if torch.cuda.is_current_stream_capturing():
+        if _CAPTURES:
+            _CAPTURES[-1].append(pair)
+    else:
+        if len(_ARMED) >= MAX_ARMED:
+            _read_armed()
+        arm([pair])
+
+
+@contextmanager
+def collect_spans():
+    """Yields the list into which the device spans recorded in the body
+    inside a capture are put (a graph's own pairs, utils/aotcache.py)."""
+    pairs = []
+    _CAPTURES.append(pairs)
+    try:
+        yield pairs
+    finally:
+        _CAPTURES.pop()
+
+
+def arm(pairs) -> None:
+    """Queue recorded pairs for report()."""
+    for p in pairs:
+        _ARMED[id(p)] = p
+
+
+def settle(pairs) -> None:
+    """Read those of `pairs` still armed into the registry, or drop them
+    where their end has not completed; never waits. A graph's pairs are
+    settled before its next replay records them again."""
+    for p in pairs:
+        if _ARMED.pop(id(p), None) is None:
+            continue
+        if p.end.query():
+            _add(p.name, p.start.elapsed_time(p.end) * 1e-3)
+        else:
+            _add(DROPPED, 0.0)
+
+
+def _read_armed() -> None:
+    settle(list(_ARMED.values()))
 
 
 def device_sync(tree) -> None:
@@ -106,8 +198,12 @@ def device_trace():
 
 
 def report() -> dict:
+    """The registry, every armed device span read first (or dropped)."""
+    _read_armed()
     return {k: dict(v) for k, v in _METRICS.items()}
 
 
 def reset() -> None:
+    """Empty the registry and forget the armed pairs unread."""
     _METRICS.clear()
+    _ARMED.clear()
