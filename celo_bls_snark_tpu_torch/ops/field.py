@@ -32,6 +32,10 @@ else raises. There is no fallback from the card to the plain version.
   mont_redc       lazy x -> canonical limbs of (X + m p) / R, X = x + 256p
                   and m = -X p^-1 mod R; the same rounds as mont_mul
                   without the a_i B rows (see _redc_words_plain)
+  f12_cyclo_sq    the cyclotomic squaring of an Fq12 batch, 30 mont_mul
+                  products and their limb-wise combination in one launch;
+                  its plain version is ops/tower.py's composition
+                  (f12_cyclo_sq_plain)
 
 _mul_plain and _redc_plain, in 16-bit radix, are the oracles the word-form
 plain versions are tested against: another digit order, the same integer.
@@ -39,6 +43,7 @@ plain versions are tested against: another digit order, the same integer.
 Host oracle: hostmath/fp.py.
 """
 
+import ctypes
 import os
 from contextlib import contextmanager
 
@@ -46,6 +51,7 @@ import numpy as np
 import torch
 
 from ..hostmath.params import P, R, BW6_P
+from ..utils.tree import tree_leaves
 from . import kernels
 
 LIMB_BITS = 16
@@ -547,11 +553,61 @@ class _MontMulShape(_KernelWrapper):
         return out
 
 
+class _F12CycloSq(_KernelWrapper):
+    """The cyclotomic squaring of an Fq12 batch over `spec` (FQ: the kernel
+    is built for n = 25 alone), ops/tower.py::f12_cyclo_sq: one launch of
+    csrc/cyclo_sq.cu's kernel on the card, which reads the 12 coefficients
+    where they lie (any strides) and writes one [12, n, B] tensor whose rows
+    come back as the result's leaves; CPU tensors go to the composition
+    that the kernel replaces, tower.f12_cyclo_sq_plain."""
+
+    name = "f12_cyclo_sq"
+
+    def __init__(self):
+        super().__init__()
+        self._ones = {}
+
+    def _one(self, spec: FieldSpec):
+        """The Montgomery one's limbs as the C interface takes them."""
+        one = self._ones.get(spec.name)
+        if one is None:
+            one = self._ones[spec.name] = (ctypes.c_int32 * spec.n)(
+                *(int(v) for v in spec.to_mont(1)))
+        return one
+
+    def __call__(self, spec: FieldSpec, a):
+        from .tower import f12_cyclo_sq_plain  # the tower builds on this module
+
+        leaves = tree_leaves(a)
+        dev = leaves[0].device
+        if any(x.device != dev for x in leaves):
+            raise ValueError(f"operands on {sorted({str(x.device) for x in leaves})}")
+        if dev.type == "cpu":
+            return f12_cyclo_sq_plain(a)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if len(leaves) != 12 or any(
+                x.dtype != torch.int32 or x.dim() < 2 or x.shape[0] != spec.n
+                for x in leaves):
+            raise ValueError(f"expected an Fq12 tree of 12 [{spec.n}, ...] int32 tensors")
+        n = spec.n
+        batch = torch.broadcast_shapes(*(x.shape[1:] for x in leaves))
+        coeffs = [x.expand(n, *batch).reshape(n, -1) for x in leaves]  # views
+        out = torch.empty((12, n, coeffs[0].shape[1]), dtype=torch.int32, device=dev)
+        if out.shape[2]:
+            kernels.launch_f12_cyclo_sq(self._constants(spec), coeffs, self._one(spec), out)
+            self._launched(spec)
+        o = out.reshape(12, n, *batch)
+        return tuple(tuple((o[6 * h + 2 * s], o[6 * h + 2 * s + 1]) for s in range(3))
+                     for h in range(2))
+
+
 mont_mul = _MontMul()
 mont_redc = _MontRedc()
 mont_mul_tc = _MontMulTc()
 mont_mul_shape = _MontMulShape()
-KERNELS = (mont_mul, mont_redc, mont_mul_tc, mont_mul_shape)
+f12_cyclo_sq = _F12CycloSq()
+KERNELS = (mont_mul, mont_redc, mont_mul_tc, mont_mul_shape, f12_cyclo_sq)
 
 # which kernel `mul` uses: "cios" (mont_mul) or "tc" (mont_mul_tc). None
 # until first use, when CELO_MUL_MXU=1 in the environment selects "tc", as

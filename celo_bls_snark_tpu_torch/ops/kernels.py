@@ -98,8 +98,9 @@ def build() -> dict:
 
 def _kernel_name(mangled: str):
     """`mont_mul_kernel<25,128,4>` from a mangled entry name (template
-    arguments read off it), or None for another function."""
-    k = re.search(r"\d+(mont_\w+?_kernel)I((?:Li\d+E)+)E", mangled)
+    arguments read off it), or None for another function: the mont_*
+    kernels and f12_cyclo_sq_kernel."""
+    k = re.search(r"\d+((?:mont_\w+?|f12_cyclo_sq)_kernel)I((?:Li\d+E)+)E", mangled)
     if k is None:
         return None
     return f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
@@ -129,7 +130,8 @@ def sass_count(mnemonic: str, text=None):
 
 def sass_histogram(text: str) -> dict:
     """{kernel: {"instructions": n, "top": [(mnemonic, count), ...]}} for
-    the mont_* kernels in a SASS dump, kernels named as by ptxas_report."""
+    the kernels _kernel_name names in a SASS dump, named as by
+    ptxas_report."""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Function : (\S+)", ln)
@@ -200,9 +202,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.celo_mont_mul_tc_occupancy.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
     ]
+    lib.celo_f12_cyclo_sq.argtypes = [
+        *consts, ptr, ptr, ptr, ptr, ptr, ctypes.c_int64, ptr,
+    ]
     for fn in (lib.celo_mont_mul, lib.celo_mont_mul_shape,
                lib.celo_mont_mul_tc, lib.celo_mont_redc,
-               lib.celo_mont_mul_tc_occupancy):
+               lib.celo_mont_mul_tc_occupancy, lib.celo_f12_cyclo_sq):
         fn.restype = ctypes.c_int
     return lib
 
@@ -298,6 +303,21 @@ def tc_occupancy(n: int) -> dict:
         ctypes.c_int(n), ctypes.byref(blocks), ctypes.byref(smem))
     _check(err, f"mont_mul_tc_occupancy[{n}]")
     return {"blocks_per_sm": blocks.value, "smem_bytes": smem.value}
+
+
+def launch_f12_cyclo_sq(consts: FieldConstants, coeffs, one, out):
+    """out = the cyclotomic squaring of the Fq12 batch whose 12 coefficients
+    are `coeffs` ([n, B] int32 on the card, any strides: read where they
+    lie); `one`: the field's Montgomery one as a host ctypes int32 array of
+    n limbs; out: a contiguous [12, n, B] int32 tensor on the same card."""
+    ptrs = (ctypes.c_void_p * 12)(*(x.data_ptr() for x in coeffs))
+    rows = (ctypes.c_int64 * 12)(*(x.stride(0) for x in coeffs))
+    cols = (ctypes.c_int64 * 12)(*(x.stride(1) for x in coeffs))
+    err = library().celo_f12_cyclo_sq(
+        *consts.args, ptrs, rows, cols, one, _ptr(out),
+        ctypes.c_int64(out.shape[2]), _stream(out),
+    )
+    _check(err, "f12_cyclo_sq")
 
 
 def launch_mont_redc(consts: FieldConstants, x, out):

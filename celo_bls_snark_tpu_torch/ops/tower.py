@@ -10,7 +10,8 @@ All multiplications are STACKED: a tower-level product expands (via
 Karatsuba at every level) into a list of independent Fq multiplies that run
 as ONE wide kernel call (fq.mul_many). An Fq12 mul is exactly one
 mont_mul launch of width 54*B, which keeps kernel launches flat as the
-tower deepens.
+tower deepens. The cyclotomic squaring is one kernel of its own on the
+card (f12_cyclo_sq), products and combination together.
 
 Host oracle: hostmath/{fp2,fq12}.py (cross-validated in tests).
 """
@@ -18,6 +19,7 @@ Host oracle: hostmath/{fp2,fq12}.py (cross-validated in tests).
 from ..hostmath import fp2 as hfp2
 from ..hostmath.fq12 import _GAMMA_V, _GAMMA_V2, _GAMMA_W
 from ..utils.tree import tree_leaves, tree_map
+from . import field
 from .field import FQ, fq
 
 
@@ -245,10 +247,20 @@ def f12_sq(a):
 
 def f12_cyclo_sq(a):
     """Granger-Scott squaring for unitary elements (the cyclotomic subgroup
-    every post-easy-part final-exp value lives in): 3 Fq4 squarings (6 Fq2
-    muls = 18 fq products) + a mul-by-one canonicalization of the 6 input
-    coefficients (12 fq products), all in ONE 30*B-wide launch — vs 54*B
-    for f12_sq per squaring of the final exp's ~315-deep pow chains.
+    every post-easy-part final-exp value lives in), f12_cyclo_sq_plain's
+    function. CUDA tensors: ONE launch of the f12_cyclo_sq kernel
+    (ops/field.py, csrc/cyclo_sq.cu), limb for limb the composition's
+    result, where the composition is 119 launches; CPU tensors: the
+    composition."""
+    return field.f12_cyclo_sq(FQ, a)
+
+
+def f12_cyclo_sq_plain(a):
+    """The plain version of the f12_cyclo_sq kernel, and the composition it
+    replaces: 3 Fq4 squarings (6 Fq2 muls = 18 fq products) + a
+    mul-by-one canonicalization of the 6 input coefficients (12 fq
+    products), all in ONE 30*B-wide multiply launch — vs 54*B for f12_sq
+    per squaring of the final exp's ~315-deep pow chains.
 
     The canonicalization is load-bearing, not an optimization: the +-2z
     terms below bypass the Montgomery multiply, so without it the lazy

@@ -19,6 +19,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      at the sweep's width, printed at the end as one `kernels` line (`ms`
      is the card's time per launch, from a replayed CUDA graph of the
      launches; `eager_ms` the time per call issued from Python);
+     Then the cyclotomic squaring's kernel (f12_cyclo_sq, csrc/
+     cyclo_sq.cu) at 1, 300, 6,000 and 2^16 lanes, exactly against the
+     composition it replaces on the card and on the CPU, timed beside it
+     (one `cyclo_sq` line; its row joins the `kernels` line);
   3. entry(): the 8-message, 4-validator verification is True on the
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
@@ -173,6 +177,7 @@ from celo_bls_snark_tpu_torch.ops import hash_to_g1  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import kernels  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import msm  # noqa: E402
 from celo_bls_snark_tpu_torch.ops import ntt as dntt  # noqa: E402
+from celo_bls_snark_tpu_torch.ops import tower as TT  # noqa: E402
 from celo_bls_snark_tpu_torch.parallel import distributed as pdist  # noqa: E402
 from celo_bls_snark_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from celo_bls_snark_tpu_torch.scripts import bench_hash_verify as hash_bench  # noqa: E402
@@ -218,6 +223,10 @@ KERNEL_INFO = {
                     "replaces": "celo_bls_snark_tpu/ops/field.py:323"},
     "mont_mul_shape": {"source": SRC + "field.cu",
                        "replaces": "scripts/prof_field.py:28"},
+    "f12_cyclo_sq": {"source": SRC + "cyclo_sq.cu",
+                     "replaces": "no TPU kernel: ops/tower.py's composition "
+                                 "f12_cyclo_sq_plain (one mont_mul launch and "
+                                 "118 PyTorch launches)"},
 }
 NO_LIBRARY = ("no PyTorch call computes a multi-precision Montgomery "
               "product or reduction")
@@ -250,7 +259,10 @@ TIMED = {
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
 MAIN_WIDTH = {"mont_mul": (25, 12288), "mont_redc": (25, 2),
-              "mont_mul_tc": (49, 6 * L_MSM)}
+              "mont_mul_tc": (49, 6 * L_MSM), "f12_cyclo_sq": (25, 1)}
+# the final exponentiation's lanes: the grouped check (1), the strict and
+# individual strategies (300, 6,000); and a width where the bytes bind
+CYCLO_WIDTHS = [1, 300, 6000, 1 << 16]
 SHAPE_B = 1 << 16  # the launch-shape sweep's width, n = 25
 
 
@@ -266,9 +278,12 @@ def bound(name, n, B):
     the integer rate). mont_mul_tc keeps one of the two products
     on the CUDA cores (2 W^2) and does 2 (2n 2n + 4n 2n) = 24 n^2 8-bit
     operations on the tensor cores; its operations time is the larger of
-    the two."""
+    the two. f12_cyclo_sq reads 12 coefficients and writes 12 (96 n bytes
+    a lane) and runs 30 mont_mul products a lane."""
     W = (n + 1) // 2
-    if name == "mont_redc":
+    if name == "f12_cyclo_sq":
+        nbytes, t_ops = 96 * n * B, 30 * 4 * W * W * B / LANE_OPS_PER_S
+    elif name == "mont_redc":
         nbytes, t_ops = 8 * n * B, 2 * W * W * B / LANE_OPS_PER_S
     elif name == "mont_mul_tc":
         nbytes = 12 * n * B
@@ -386,7 +401,7 @@ def max_err(got, want):
 def phase_kernels():
     gen = torch.Generator(device=DEV)
     gen.manual_seed(20261016)
-    worst = {name: 0 for name in KERNEL_INFO}
+    worst = {name: 0 for name in PLAIN}
 
     def hold(name, what, got, want):
         err = max_err(got, want)
@@ -455,6 +470,67 @@ def phase_kernels():
                   extra={"threads": th}.items())
         for th in kernels.SHAPE_THREADS
     ]
+    return rows, worst
+
+
+def lazy_f12(B, gen):
+    """An Fq12 batch on the card as the final exponentiation's squarings
+    take it: 12 lazy [25, B] coefficients, each a value v0 < 2^(16 (n - 2))
+    plus s p with s in [-8, 8], its limbs re-split with random signed
+    carries below 2^6 (limbs below 2^23, so that every pre-added operand
+    stays inside the multiply's contract)."""
+    spec, n = F.FQ, F.FQ.n
+    leaves = []
+    for _ in range(12):
+        lo = torch.randint(0, 1 << 16, (n, B), generator=gen, device=DEV)
+        lo[n - 2:] = 0
+        s = torch.randint(-8, 9, (1, B), generator=gen, device=DEV)
+        limbs = lo + s * spec.column(spec.p_limbs, DEV, torch.int64)
+        d = torch.randint(-64, 64, (n - 1, B), generator=gen, device=DEV)
+        limbs[:-1] += d << 16
+        limbs[1:] -= d
+        leaves.append(limbs.to(torch.int32))
+    return tuple(tuple((leaves[6 * h + 2 * k], leaves[6 * h + 2 * k + 1])
+                       for k in range(3)) for h in range(2))
+
+
+def phase_cyclo_sq():
+    """The cyclotomic squaring's kernel (csrc/cyclo_sq.cu) at the final
+    exponentiation's widths and at 2^16 lanes, limb for limb against the
+    composition it replaces on the card (its plain version on CUDA
+    tensors: one mont_mul launch and 118 PyTorch launches) and, up to
+    6,000 lanes, on the CPU; each timed from a replayed CUDA graph of 200
+    launches (`ms`), issued from Python (`eager_ms`), beside the
+    composition from a replayed graph (`plain_ms`) and the bound. One
+    `cyclo_sq` line; returns (rows, max |err|)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(20261021)
+    rows, worst = [], 0
+    for B in CYCLO_WIDTHS:
+        a = lazy_f12(B, gen)
+
+        def kern(a=a):
+            return TT.f12_cyclo_sq(a)
+
+        def plain(a=a):
+            return TT.f12_cyclo_sq_plain(a)
+
+        got = torch.stack(tree_leaves(kern()))
+        err = max_err(got, torch.stack(tree_leaves(plain())))
+        if B <= 6000:
+            cpu = TT.f12_cyclo_sq_plain(tree_map(lambda t: t.cpu(), a))
+            err = max(err, max_err(got.cpu(), torch.stack(tree_leaves(cpu))))
+        if err:
+            fail(f"f12_cyclo_sq B={B}: max |kernel - plain| = {err}")
+        worst = max(worst, err)
+        bms, by = bound("f12_cyclo_sq", F.FQ.n, B)
+        rows.append({"n": F.FQ.n, "B": B, "max_abs_err": err,
+                     "ms": time_ms(kern, 200, graph=True),
+                     "eager_ms": time_ms(kern, 200),
+                     "plain_ms": time_ms(plain, 20, graph=True),
+                     "bound_ms": bms, "bound_by": by})
+    line({"phase": "cyclo_sq", "rows": rows,
+          "card": torch.cuda.get_device_name(0)})
     return rows, worst
 
 
@@ -1473,6 +1549,7 @@ def main():
     record_calls()
     smi = phase_device()
     rows, worst = phase_kernels()
+    rows["f12_cyclo_sq"], worst["f12_cyclo_sq"] = phase_cyclo_sq()
     phase_entry()
     by_path = {}
     by_path["verify"], main_inputs = phase_main()

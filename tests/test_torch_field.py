@@ -219,8 +219,8 @@ def test_wrappers_route_cpu_to_plain_and_count_only_launches():
         tf.fq.mul(a, a)
     tf.mont_mul_shape(tf.FQ, a, a, 64)
     assert [k.name for k in tf.KERNELS] == [
-        "mont_mul", "mont_redc", "mont_mul_tc", "mont_mul_shape"]
-    assert [k.launches for k in tf.KERNELS] == [0, 0, 0, 0]
+        "mont_mul", "mont_redc", "mont_mul_tc", "mont_mul_shape", "f12_cyclo_sq"]
+    assert [k.launches for k in tf.KERNELS] == [0, 0, 0, 0, 0]
     with pytest.raises(ValueError):
         tf.mont_mul(tf.FQ, a.to(torch.int64), a.to(torch.int64))
     with pytest.raises(ValueError):
@@ -576,6 +576,10 @@ def test_compiler_report_parsers():
         "'_ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab16mont_redc_kernelILi17EEEvPKiPilN4celo11FieldConstsE' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 40 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN46_GLOBAL__N__3b1c2d4e_11_cyclo_sq_cu_5f6a7b8c19f12_cyclo_sq_kernelILi25ELi8EEEvNS_6Fq12InEPilN4celo11FieldConstsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 42080 bytes smem\n"
     )
     rep = tk.ptxas_report(ptxas)
     assert rep["mont_mul_kernel<49>"] == {
@@ -583,6 +587,8 @@ def test_compiler_report_parsers():
     assert rep["mont_mul_kernel<25,32,16>"] == {
         "stack": 8, "spill_stores": 8, "spill_loads": 12, "registers": 96, "smem": 16}
     assert rep["mont_redc_kernel<17>"]["registers"] == 40
+    assert rep["f12_cyclo_sq_kernel<25,8>"] == {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 64, "smem": 42080}
     sass = (
         "\t\tFunction : _ZN40_GLOBAL__N__ee97de1a_8_field_cu_16e478ab15mont_mul_kernelILi49EEEvPKiS2_PilN4celo11FieldConstsE\n"
         "        /*0000*/                   LDC R1, c[0x0][0x28] ;\n"
