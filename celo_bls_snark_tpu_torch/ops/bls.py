@@ -145,23 +145,25 @@ def batch_verify_messages_device(sigs_jac, apks_aff, domain, messages,
                                  extra_data=b"", groups: int = 1,
                                  composite: bool = False,
                                  num_counters: int = 24,
-                                 compat: bool = True):
+                                 compat: bool = True, cip22: bool = True):
     """The reference's `Signature::batch_verify` including message hashing
     (signature.rs:101-117) as one pipeline on the signatures' device:
-    batched CIP22 try-and-increment hash-to-G1 (ops/hash_to_g1.py; the
-    Pedersen CRH when `composite`) feeding the grouped (G+1)-pairing check.
-    The rare no-valid-counter lanes (probability ~0.58^num_counters) are
-    hashed by the host hasher and merged on the card.
+    batched try-and-increment hash-to-G1 (ops/hash_to_g1.py; CIP22, the
+    Pedersen CRH when `composite`; with cip22=False the variant before
+    CIP22 over the direct hasher, as syncing nodes hash committed seals)
+    feeding the grouped (G+1)-pairing check. The rare no-valid-counter
+    lanes (probability ~0.58^num_counters) are hashed by the host hasher
+    and merged on the card.
 
     sigs_jac: G1 projective [len(messages)]; apks_aff: G2 affine [groups];
     messages: equal-length byte strings, group g owning the contiguous
     lanes [g*B, (g+1)*B). extra_data: shared bytes or a per-message list.
     Returns a bool tensor of shape [1]. Its stages are timed under
-    utils/profiling.py's names h2g.crh, h2g.round1, h2g.round2 and
-    bls.pairing."""
+    utils/profiling.py's names h2g.crh (CIP22) or h2g.pack (before CIP22),
+    h2g.round1, h2g.round2 and bls.pairing."""
     hashes_jac, _fallback = hash_messages_device(
         domain, messages, extra_data, composite, num_counters, compat,
-        sigs_jac[0].device,
+        sigs_jac[0].device, cip22,
     )
     with stage("bls.pairing"):
         ok = batch_verify_grouped_aot(sigs_jac, hashes_jac, apks_aff, groups)
@@ -171,14 +173,18 @@ def batch_verify_messages_device(sigs_jac, apks_aff, domain, messages,
 
 def hash_messages_device(domain, messages, extra_data=b"", composite=False,
                          num_counters: int = 24, compat: bool = True,
-                         device="cuda"):
+                         device="cuda", cip22: bool = True):
     """The message hashes of batch_verify_messages_device: (G1 projective
     batch [len(messages)] on `device`, the lanes hashed by the host
-    fallback as a list)."""
+    fallback as a list). cip22=False hashes by the try-and-increment
+    before CIP22 over the direct hasher; the composite hasher runs only
+    with CIP22."""
     from ..hashers.composite import composite_hasher
     from ..hashers.direct import DirectHasher
     from .hash_to_g1 import composite_crh_bytes, hash_to_g1_device, host_fallback
 
+    if composite and not cip22:
+        raise ValueError("the try-and-increment before CIP22 runs the direct hasher only")
     if composite:
         with stage("h2g.crh"):
             crh_u8 = composite_crh_bytes(messages, device)
@@ -186,12 +192,12 @@ def hash_messages_device(domain, messages, extra_data=b"", composite=False,
         crh_u8 = None
     hashes_jac, has = hash_to_g1_device(
         domain, messages, extra_data, compat=compat,
-        num_counters=num_counters, crh_u8=crh_u8, device=device,
+        num_counters=num_counters, crh_u8=crh_u8, device=device, cip22=cip22,
     )
     if has.all():
         return hashes_jac, []
     hasher = composite_hasher() if composite else DirectHasher()
-    patch = host_fallback(hasher, domain, messages, extra_data, has, compat)
+    patch = host_fallback(hasher, domain, messages, extra_data, has, compat, cip22)
     idx = torch.tensor(list(patch), dtype=torch.int64, device=hashes_jac[0].device)
     pts = dc.g1_pack(list(patch.values()), idx.device)
     hashes_jac = tree_map(lambda full, part: full.index_copy(-1, idx, part),

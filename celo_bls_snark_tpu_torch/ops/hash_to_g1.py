@@ -20,16 +20,24 @@ mont_mul and mont_redc kernels:
   6. sign selection (the lexicographically greatest root iff the flag bit
      is set) and the G1 cofactor multiply.
 
+The try-and-increment before CIP22 (try_and_increment.rs, over the
+DirectHasher), as syncing nodes hash committed seals, shares steps 3-6 (the
+round's back end, _round_back); its front end hashes every (counter,
+message) lane whole, the CRH of c || extra || msg and then the XOF of the
+digest, over lane messages formed on the card from the messages' words.
+
 Messages with no valid counter in [0, C1) go through a second round over
 the counters [C1, C) and are merged on the card; only the [B] `has` mask
 crosses to the host. Where the JAX package caches one executable per shape
 (h2g_crh, h2g_round, h2g_merge), this module caches one CUDA graph per
-shape under the same tags (utils/aotcache.py): the CRH, each round and the
-merge take device words and indices, and their host reads come after the
-replay. Data (the Tonelli-Shanks tables, the cofactor's bits, the Blake2s
-state) is cached per device, outside any capture.
+shape under the same tags (utils/aotcache.py; the rounds before CIP22,
+which the JAX package lacks, under h2g_round_direct): the CRH, each round
+and the merge take device words and indices, and their host reads come
+after the replay. Data (the Tonelli-Shanks tables, the cofactor's bits,
+the Blake2s state) is cached per device, outside any capture.
 
-Bit-exactness oracle: hash_to_curve/try_and_increment_cip22.py.
+Bit-exactness oracles: hash_to_curve/try_and_increment_cip22.py and
+try_and_increment.py.
 """
 
 import os
@@ -41,7 +49,7 @@ from ..hash_to_curve.common import G1_BYTES, hash_length
 from ..hostmath.params import G1_COFACTOR, P
 from ..utils import aotcache
 from ..utils.devices import require_device
-from ..utils.profiling import device_span, stage
+from ..utils.profiling import count, device_span, stage
 from ..utils.tree import tree_map
 from . import blake2s as db
 from . import curve as dc
@@ -55,6 +63,8 @@ HASH_BYTES = hash_length(G1_BYTES)  # 64: two Blake2s blocks of XOF output
 # package): with miss probability 0.58 per counter the two-round lane cost
 # C1 + 0.58^C1 (C - C1) is least near C1 = 5
 ROUND1_COUNTERS = 5
+# the counter (utils/profiling.py::count) of a call's round-2 lanes
+ROUND2_LANES = "h2g.round2_lanes"
 
 
 def _nonresidue_z() -> int:
@@ -228,25 +238,67 @@ def _pow2ceil(v: int) -> int:
     return 1 << max(0, (v - 1).bit_length())
 
 
+def _round_back(xof, compat: bool, nc: int, m: int):
+    """The back end of a round, shared by both variants, on the XOF words
+    [2, 8, nc m] of lane c * m + i (counter c_lo + c of message i):
+    candidate parse, Legendre validity, first-valid-counter selection,
+    Tonelli-Shanks finish, sign select and cofactor multiply. Returns
+    (projective [m] tree, has [m] bool tensor)."""
+    x, greatest, valid, w, t = _candidate_points(xof, compat)
+    vmat = valid.reshape(nc, m)
+    # the first valid counter (argmax: the first maximal index)
+    first = torch.argmax(vmat.to(torch.int32), dim=0)
+    has = vmat.any(dim=0)
+    lanes = first * m + torch.arange(m, device=x.device)
+    xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
+    y = _tonelli_shanks_finish(ts, ws)
+    y = _select_greatest(y, greatest[lanes])
+    pt = dc.g1.from_affine((xs, y))
+    return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
+
+
 def _round_body(words, msg_len: int, domain: bytes, compat: bool, nc: int, m: int):
-    """One round's device program on its XOF message words [16 nblocks,
-    nc m]: Blake2Xs XOF, candidate parse, Legendre validity,
-    first-valid-counter selection, Tonelli-Shanks finish, sign select and
-    cofactor multiply. Returns (projective [m] tree, has [m] bool tensor).
-    On the card the device span gpu.h2g.round."""
+    """One CIP22 round's device program on its XOF message words [16
+    nblocks, nc m]: the Blake2Xs XOF, then _round_back. Returns
+    (projective [m] tree, has [m] bool tensor). On the card the device span
+    gpu.h2g.round."""
     with device_span("gpu.h2g.round", words):
         xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
-        x, greatest, valid, w, t = _candidate_points(xof, compat)
-        vmat = valid.reshape(nc, m)
-        # the first valid counter (argmax: the first maximal index)
-        first = torch.argmax(vmat.to(torch.int32), dim=0)
-        has = vmat.any(dim=0)
-        lanes = first * m + torch.arange(m, device=x.device)
-        xs, ws, ts = (torch.index_select(a, -1, lanes) for a in (x, w, t))
-        y = _tonelli_shanks_finish(ts, ws)
-        y = _select_greatest(y, greatest[lanes])
-        pt = dc.g1.from_affine((xs, y))
-        return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
+        return _round_back(xof, compat, nc, m)
+
+
+def _lane_words(words, c_lo: int, nc: int):
+    """The pre-CIP22 lanes' message words [16 nblocks, nc m] from the
+    messages' words [16 nblocks, m], whose first byte is left 0 for the
+    counter: lane c * m + i is c_lo + c || extra_data_i || message_i."""
+    m = words.shape[1]
+    ctr = torch.arange(c_lo, c_lo + nc, dtype=words.dtype, device=words.device)
+    first = (words[0][None, :] | ctr[:, None]).reshape(1, nc * m)
+    rest = words[1:, None, :].expand(-1, nc, m).reshape(-1, nc * m)
+    return torch.cat([first, rest])
+
+
+def _direct_round_body(words, idx, msg_len: int, domain: bytes, compat: bool,
+                       c_lo: int, nc: int, m: int):
+    """One pre-CIP22 round's device program (try_and_increment.rs): on the
+    messages' words [16 nblocks, B] (lane_message_words), of the lanes
+    `idx` [m] when given, else of all B = m, the DirectHasher's whole hash
+    of every (counter, message) lane (the Blake2s CRH of c || extra || msg,
+    then the Blake2Xs XOF of its digest; the device span
+    gpu.h2g.lane_hash), then _round_back. A first valid candidate whose
+    cofactor multiple is the point at infinity is not a hash: the host
+    path moves on to the next counter, so the message goes to the host.
+    Returns (projective [m] tree, [2, m] bool tensor: found, to the host).
+    On the card the device span gpu.h2g.round."""
+    with device_span("gpu.h2g.round", words):
+        if idx is not None:
+            words = torch.index_select(words, 1, idx)
+        lanes = _lane_words(words, c_lo, nc)
+        with device_span("gpu.h2g.lane_hash", lanes):
+            xof = db._direct_hash_words(lanes, msg_len, HASH_BYTES, domain)
+        jac, has = _round_back(xof, compat, nc, m)
+        host = has & dc.g1.is_infinity(jac)
+        return jac, torch.stack([has & ~host, host])
 
 
 def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,
@@ -278,6 +330,68 @@ def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,
     jac, has = fn(words)
     # the one host read of the round (it waits for the round's work)
     return jac, has.cpu().numpy()
+
+
+def lane_message_words(messages, ed: np.ndarray, device):
+    """The pre-CIP22 round's message words on `device`: int64 [16 nblocks,
+    B] of 0 || extra_data_i || message_i, zero-padded to whole 64-byte
+    blocks; the first byte is the counter's, which the round sets on the
+    card (_lane_words). The messages' bytes cross to the card as they are
+    and the words are formed there. Returns (words, msg_len)."""
+    B = len(messages)
+    lengths = set(map(len, messages))
+    if len(lengths) != 1:
+        raise ValueError("the pre-CIP22 round takes messages of one length")
+    L = lengths.pop()
+    edlen = ed.shape[-1]
+    msg_len = 1 + edlen + L
+    buf = torch.zeros((B, max(1, (msg_len + 63) // 64) * 64), dtype=torch.uint8,
+                      device=device)
+    if edlen:
+        buf[:, 1 : 1 + edlen] = torch.from_numpy(ed.copy()).to(device)
+    if L:
+        raw = torch.frombuffer(bytearray().join(messages), dtype=torch.uint8)
+        buf[:, 1 + edlen : msg_len] = raw.to(device).view(B, L)
+    # little-endian words, as int64 holding [0, 2^32)
+    words = buf.view(torch.int32).T.to(torch.int64) & db.MASK32
+    return words.contiguous(), msg_len
+
+
+def _direct_round(words, idx, msg_len: int, domain: bytes, compat: bool,
+                  c_lo: int, nc: int):
+    """One pre-CIP22 round for counters [c_lo, c_lo + nc) over the messages
+    whose words are the columns of `words` on the card, or over the columns
+    `idx` (a device tensor) of them: _direct_round_body as the graph
+    h2g_round_direct_<msg_len>_<domain>_<compat>_<c_lo>_<nc>_<m>.
+
+    Returns (projective [m] tree on the card, found [m], to the host [m]),
+    the last two numpy bool; lanes found False hold garbage points."""
+    m = words.shape[1] if idx is None else idx.shape[0]
+    fn = aotcache.jit(
+        f"h2g_round_direct_{msg_len}_{domain.hex()}_{int(compat)}_{c_lo}_{nc}_{m}",
+        lambda wds, *ix: _direct_round_body(wds, ix[0] if ix else None, msg_len, domain,
+                                            compat, c_lo, nc, m))
+    jac, status = fn(words) if idx is None else fn(words, idx)
+    # the one host read of the round (it waits for the round's work)
+    found, host = status.cpu().numpy()
+    return jac, found, host
+
+
+def _round2_chunks(pending, B: int, nc: int):
+    """The round-2 chunks of the `pending` messages: (chunk, idx) with idx
+    the chunk padded to the cap by repeating its first lane. Counts the
+    round-2 lanes (cap x nc each chunk, padding included) under
+    ROUND2_LANES."""
+    cap = min(_pow2ceil(len(pending)), max(32, _pow2ceil(B // 16)))
+    out = []
+    for i in range(0, len(pending), cap):
+        chunk = pending[i : i + cap]
+        m = len(chunk)
+        idx = (np.concatenate([chunk, np.full(cap - m, chunk[0])])
+               if m < cap else chunk)
+        out.append((chunk, idx))
+    count(ROUND2_LANES, cap * nc * len(out))
+    return out
 
 
 def _merge(full, part, idx, ok):
@@ -317,7 +431,7 @@ def extra_data_of(extra_data, i: int) -> bytes:
 
 def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
                       compat: bool = True, num_counters: int = 16,
-                      crh_u8=None, device="cuda"):
+                      crh_u8=None, device="cuda", cip22: bool = True):
     """The try-and-increment core on `device`: returns (jac_points,
     has_mask), the hashed points as a projective batch on `device` and a
     numpy bool mask of the messages whose first valid counter fell inside
@@ -331,15 +445,27 @@ def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
     pass the composite Pedersen digests (ops/pedersen.py::bh_crh_digests)
     for the CompositeHasher path.
 
+    cip22=False: the try-and-increment before CIP22 (try_and_increment.rs)
+    over the DirectHasher: every (counter, message) lane is hashed whole,
+    c || extra_data || message through the CRH and the XOF, its lanes'
+    messages formed on the card from the messages' bytes (the host stage
+    h2g.pack copies them in). It takes no crh_u8.
+
     Two rounds: counters [0, C1) for every message, then the remaining
-    counters for the unresolved messages only, padded to a fixed cap.
-    First-valid-counter semantics are kept exactly: a message reaches
-    round 2 iff every round-1 counter was invalid, and the rounds' counter
-    ranges are disjoint."""
+    counters for the unresolved messages only, padded to a fixed cap
+    (their lanes counted under ROUND2_LANES). First-valid-counter
+    semantics are kept exactly: a message reaches round 2 iff every
+    round-1 counter was invalid, and the rounds' counter ranges are
+    disjoint."""
     device = require_device(device)
     B = len(messages)
     C = num_counters
     ed = extra_data_rows(extra_data, B)
+    C1 = min(int(os.environ.get("CELO_H2G_ROUND1", ROUND1_COUNTERS)), C)
+    if not cip22:
+        if crh_u8 is not None:
+            raise ValueError("the pre-CIP22 round hashes each lane whole: no crh_u8")
+        return _hash_direct(domain, messages, ed, compat, C, C1, device)
 
     if crh_u8 is None:
         with stage("h2g.crh"):
@@ -357,43 +483,59 @@ def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
         if crh_u8.shape[0] != B:
             raise ValueError(f"{crh_u8.shape[0]} CRH rows for {B} messages")
 
-    C1 = min(int(os.environ.get("CELO_H2G_ROUND1", ROUND1_COUNTERS)), C)
     with stage("h2g.round1"):
         jac, has = _fused_round(crh_u8, ed, 0, C1, domain, compat, device)
+    return _round2(jac, has, ~has, C - C1, device, lambda idx, _idx_t: _fused_round(
+        crh_u8[idx], ed[idx] if ed.ndim == 2 else ed, C1, C - C1, domain, compat, device))
 
-    if C > C1 and not has.all():
-        has = has.copy()
-        pending = np.nonzero(~has)[0]
-        cap = min(_pow2ceil(len(pending)), max(32, _pow2ceil(B // 16)))
+
+def _hash_direct(domain, messages, ed, compat, C, C1, device):
+    """hash_to_g1_device with cip22=False."""
+    with stage("h2g.pack"):
+        words, msg_len = lane_message_words(messages, ed, device)
+    with stage("h2g.round1"):
+        jac, has, host = _direct_round(words, None, msg_len, domain, compat, 0, C1)
+    return _round2(jac, has, ~has & ~host, C - C1, device, lambda _idx, idx_t: _direct_round(
+        words, idx_t, msg_len, domain, compat, C1, C - C1)[:2])
+
+
+def _round2(jac, has, pending, nc: int, device, run_chunk):
+    """Round 2 over the messages of the mask `pending` and the nc counters
+    after round 1's, in chunks (_round2_chunks): run_chunk(idx, idx_t), idx
+    the chunk's lanes in numpy and on the card, returns its (projective
+    tree, found numpy bool); its found lanes are merged into `jac` on the
+    card. Returns (jac, has), has a copy updated."""
+    has = has.copy()
+    chunks = _round2_chunks(np.nonzero(pending)[0] if nc > 0 else np.zeros(0, np.int64),
+                            len(has), nc)
+    if chunks:
         with stage("h2g.round2"):
-            for i in range(0, len(pending), cap):
-                chunk = pending[i : i + cap]
-                m = len(chunk)
-                idx = (np.concatenate([chunk, np.full(cap - m, chunk[0])])
-                       if m < cap else chunk)
-                jac2, has2 = _fused_round(
-                    crh_u8[idx], ed[idx] if ed.ndim == 2 else ed,
-                    C1, C - C1, domain, compat, device,
-                )
+            for chunk, idx in chunks:
+                idx_t = torch.from_numpy(idx.astype(np.int64)).to(device)
+                jac2, has2 = run_chunk(idx, idx_t)
                 # merge on the card: lanes resolved in round 2 take the new
                 # point
-                merge = aotcache.jit(f"h2g_merge_{cap}", _merge)
-                jac = merge(jac, jac2, torch.from_numpy(idx.astype(np.int64)).to(device),
-                            torch.from_numpy(has2).to(device))
-                has[chunk[has2[:m]]] = True
+                merge = aotcache.jit(f"h2g_merge_{len(idx)}", _merge)
+                jac = merge(jac, jac2, idx_t, torch.from_numpy(has2).to(device))
+                has[chunk[has2[:len(chunk)]]] = True
     return jac, has
 
 
-def host_fallback(hasher, domain, messages, extra_data, has, compat=True):
+def host_fallback(hasher, domain, messages, extra_data, has, compat=True,
+                  cip22=True):
     """The reference's semantics for the messages with no valid counter in
     [0, C): {lane: host affine point} from TryAndIncrementCIP22 over
-    `hasher`."""
+    `hasher`, or with cip22=False from TryAndIncrement (255 tries)."""
+    from ..hash_to_curve.try_and_increment import TryAndIncrement
     from ..hash_to_curve.try_and_increment_cip22 import TryAndIncrementCIP22
 
-    h2c = TryAndIncrementCIP22(hasher, "g1", compat)
+    if cip22:
+        h2c = TryAndIncrementCIP22(hasher, "g1", compat)
+        hash_one = h2c.hash_with_attempt_cip22
+    else:
+        hash_one = TryAndIncrement(hasher, "g1", compat).hash_with_attempt
     return {
-        int(i): h2c.hash_with_attempt_cip22(
-            domain, messages[i], extra_data_of(extra_data, i))[0]
+        int(i): hash_one(domain, messages[i], extra_data_of(extra_data, i))[0]
         for i in np.nonzero(~has)[0]
     }
 

@@ -19,6 +19,7 @@ of the card's clock start with `gpu.`. On CPU tensors device_span does
 nothing.
 
 Times accumulate in a process-global registry; `report()` snapshots it.
+`count(name, n)` adds a counter to it (its sum under total_s).
 `device_trace()` runs torch.profiler over the card and yields the profile;
 with Config.profile_trace_dir set it traces the host too and writes a
 Chrome trace there. `time_ms` times one call on the card between CUDA
@@ -46,6 +47,13 @@ def _add(name: str, seconds: float) -> None:
     ent = _METRICS.setdefault(name, {"calls": 0, "total_s": 0.0})
     ent["calls"] += 1
     ent["total_s"] += seconds
+
+
+def count(name: str, n: int) -> None:
+    """Add n to the counter `name`, a registry entry like a stage's whose
+    total_s holds the count (calls: the times it was added to), so that a
+    reader of the stages' sums a call reads it alike."""
+    _add(name, float(n))
 
 
 @contextmanager

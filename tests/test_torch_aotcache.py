@@ -129,6 +129,21 @@ def _hash(monkeypatch):
     return (dc.g1_unpack(jac), has.tolist()), (want, [True] * 2)
 
 
+def _hash_direct(monkeypatch):
+    # first valid counters before CIP22: 2 and 0; round 1 over counter 0,
+    # round 2 over counters 1 and 2
+    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    msgs = [b"direct msg 006", b"direct msg 007"]
+    jac, has = th.hash_to_g1_device(SIG_DOMAIN, msgs, b"", num_counters=3, device="cpu",
+                                    cip22=False)
+    from celo_bls_snark_tpu_torch.hash_to_curve.try_and_increment import TryAndIncrement
+    from celo_bls_snark_tpu_torch.hashers.direct import DirectHasher
+
+    want = [TryAndIncrement(DirectHasher(), "g1", True).hash(SIG_DOMAIN, m, b"")
+            for m in msgs]
+    return (dc.g1_unpack(jac), has.tolist()), (want, [True] * 2)
+
+
 def _merge(monkeypatch):
     """Round 2's merge: lanes idx take `part` where ok (the padding repeats
     a lane), the rest keep `full`."""
@@ -164,6 +179,9 @@ PROGRAMS = {
     "h_poly": (lambda mp: _h_poly(), {"hp_bls12_377"}),
     "hash_to_g1": (_hash, {"h2g_crh_9_" + SIG_DOMAIN.hex(),
                            "h2g_round_33_" + SIG_DOMAIN.hex() + "_1_5_2"}),
+    "hash_to_g1_direct": (_hash_direct, {"h2g_round_direct_15_" + SIG_DOMAIN.hex() + "_1_0_1_2",
+                                         "h2g_round_direct_15_" + SIG_DOMAIN.hex() + "_1_1_2_1",
+                                         "h2g_merge_1"}),
     "h2g_merge": (_merge, {"h2g_merge_4"}),
     "pedersen": (lambda mp: _crh(), {"bh_crh_14_4"}),
 }

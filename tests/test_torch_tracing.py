@@ -196,7 +196,60 @@ def test_span_names_on_the_benchmark_paths_leave_its_own_spans_alone(monkeypatch
     assert not (names | {"aot.launch", "gpu.graph"}) & BENCHMARK_SPANS
 
 
+def _pre_cip22_call(device, names=None):
+    """One pre-CIP22 hash of 4 messages (round 1 over counter 0, round 2
+    over counters 1 and 2) on `device`; returns the registry's report."""
+    from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN
+    from celo_bls_snark_tpu_torch.ops import hash_to_g1 as th
+
+    msgs = [b"direct msg %03d" % i for i in range(6, 10)]  # first counters 2 0 0 0
+    profiling.reset()
+    th.hash_to_g1_device(SIG_DOMAIN, msgs, b"", num_counters=3, device=device, cip22=False)
+    return profiling.report()
+
+
+def test_pre_cip22_call_records_its_pack_stage_and_round2_lanes(monkeypatch):
+    """A pre-CIP22 hash opens the host stage h2g.pack and the device span
+    gpu.h2g.lane_hash inside gpu.h2g.round (which records nothing on the
+    CPU), and counts its round-2 lanes: one message, 2 counters."""
+    from celo_bls_snark_tpu_torch.ops import hash_to_g1 as th
+
+    names = []
+    real = th.device_span
+
+    @contextmanager
+    def recording(name, like):
+        names.append(name)
+        with real(name, like):
+            yield
+
+    monkeypatch.setattr(th, "device_span", recording)
+    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    rep = _pre_cip22_call("cpu")
+    assert names == ["gpu.h2g.round", "gpu.h2g.lane_hash"] * 2
+    assert {"h2g.pack", "h2g.round1", "h2g.round2"} <= set(rep)
+    assert rep[th.ROUND2_LANES] == {"calls": 1, "total_s": 2.0}
+    assert not {n for n in rep if n.startswith("gpu.")}
+
+
 # --- on the card --------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_pre_cip22_lane_hash_span_on_the_card(monkeypatch):
+    """On the card each pre-CIP22 round's replay records gpu.h2g.lane_hash
+    inside its gpu.h2g.round; the call records h2g.pack and its round-2
+    lanes."""
+    needs_card()
+    from celo_bls_snark_tpu_torch.ops import hash_to_g1 as th
+
+    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    for _ in range(2):  # eager, then the captures
+        _pre_cip22_call("cuda")
+    rep = _pre_cip22_call("cuda")
+    assert rep["gpu.h2g.lane_hash"]["calls"] == 2 and rep["gpu.h2g.round"]["calls"] == 2
+    assert 0 < rep["gpu.h2g.lane_hash"]["total_s"] < rep["gpu.h2g.round"]["total_s"]
+    assert rep["h2g.pack"]["calls"] == 1 and profiling.DROPPED not in rep
+    assert rep[th.ROUND2_LANES] == {"calls": 1, "total_s": 2.0}
 
 def _spanned(a):
     with profiling.device_span("gpu.t.body", a):
