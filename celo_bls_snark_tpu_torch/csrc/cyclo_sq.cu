@@ -60,9 +60,9 @@
 
 namespace {
 
-using celo::CycloProducts;
 using celo::CycloRows;
 using celo::FieldConsts;
+using celo::LaneProducts;
 using celo::kCycloLeaves;
 using celo::kCycloOne;
 using celo::kCycloProducts;
@@ -135,7 +135,7 @@ f12_cyclo_sq_kernel(Fq12In in, int32_t* __restrict__ out, int64_t B, FieldConsts
 
     // phase 2: the 12 output coefficients, one (squaring, limb) task at a time
     if (!live) return;
-    const CycloProducts<N, L> r{prods + x};
+    const LaneProducts<N, L> r{prods + x};
 #pragma unroll
     for (int i = 0; i < kRounds; ++i) {
         const int task = y + kThreadsPerLane * i, g = task / N, k = task % N;

@@ -95,18 +95,6 @@ struct CycloRows {
     CELO_HD int32_t operator()(int r, int k) const { return p[(r * N + k) * L]; }
 };
 
-// The products of one lane, each as mont_mul_words leaves it (its limbs
-// 1 .. N are the product's, field_common.cuh): word w of product j at
-// p[(j * W + w) * L].
-template <int N, int L>
-struct CycloProducts {
-    const uint32_t* p;
-    CELO_HD int32_t operator()(int j, int k) const {
-        const int l = k + 1;
-        return static_cast<int32_t>((p[(j * words_of(N) + l / 2) * L] >> (16 * (l & 1))) & kMask);
-    }
-};
-
 // product j of one lane: t = mont_mul(a_j, b_j) * 2^16 in W words
 template <int N, int L>
 CELO_HD void cyclo_product(int j, const CycloRows<N, L>& z, const FieldConsts& c,

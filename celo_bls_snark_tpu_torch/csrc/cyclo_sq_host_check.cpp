@@ -44,7 +44,7 @@ void square(std::vector<int32_t>& z, const std::vector<int32_t>& one,
         cyclo_product<N, 1>(j, CycloRows<N, 1>{rows.data()}, c, t);
         for (int w = 0; w < W; ++w) prods[j * W + w] = t[w];
     }
-    const CycloProducts<N, 1> r{prods.data()};
+    const LaneProducts<N, 1> r{prods.data()};
     for (int g = 0; g < 3; ++g)
         for (int k = 0; k < N; ++k) {
             int32_t o[4];

@@ -99,6 +99,20 @@ CELO_HD uint32_t limb_of(const uint32_t (&w)[W], int k) {
     return (w[k / 2] >> (16 * (k & 1))) & kMask;
 }
 
+// The word-form products of one lane, each as mont_mul_words leaves it (its
+// limbs 1 .. N are the product's limbs 0 .. N - 1): word w of product j at
+// p[(j * W + w) * L]. The Fq12 kernels (cyclo_sq.cu, f12_mul.cu) keep the
+// products of their L lanes side by side in shared memory, p at the lane;
+// their host checks keep one lane (L = 1). Gives limb k of product j.
+template <int N, int L>
+struct LaneProducts {
+    const uint32_t* p;
+    CELO_HD int32_t operator()(int j, int k) const {
+        const int l = k + 1;
+        return static_cast<int32_t>((p[(j * words_of(N) + l / 2) * L] >> (16 * (l & 1))) & kMask);
+    }
+};
+
 // ---------------------------------------------------------------------------
 // Carry chains. A 32 x 32 -> 64 product added to an aligned pair of words
 // with carry in and out is ONE instruction on this card

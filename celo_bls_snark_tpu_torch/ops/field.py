@@ -36,6 +36,10 @@ else raises. There is no fallback from the card to the plain version.
                   products and their limb-wise combination in one launch;
                   its plain version is ops/tower.py's composition
                   (f12_cyclo_sq_plain)
+  f12_mul         the Fq12 multiply of two batches (or the square of
+                  one), 54 mont_mul products and their limb-wise
+                  combination in one launch; its plain version is
+                  ops/tower.py's composition (f12_mul_plain)
 
 _mul_plain and _redc_plain, in 16-bit radix, are the oracles the word-form
 plain versions are tested against: another digit order, the same integer.
@@ -553,13 +557,54 @@ class _MontMulShape(_KernelWrapper):
         return out
 
 
-class _F12CycloSq(_KernelWrapper):
-    """The cyclotomic squaring of an Fq12 batch over `spec` (FQ: the kernel
-    is built for n = 25 alone), ops/tower.py::f12_cyclo_sq: one launch of
-    csrc/cyclo_sq.cu's kernel on the card, which reads the 12 coefficients
-    where they lie (any strides) and writes one [12, n, B] tensor whose rows
-    come back as the result's leaves; CPU tensors go to the composition
-    that the kernel replaces, tower.f12_cyclo_sq_plain."""
+class _F12Kernel(_KernelWrapper):
+    """An Fq12 kernel over `spec` (FQ: the kernels are built for n = 25
+    alone): it reads each operand's 12 coefficients where they lie (any
+    strides; broadcast batches as expanded views) and writes one
+    [12, n, B] tensor whose rows come back as the result's leaves. CPU
+    tensors go to the plain version, the composition that the kernel
+    replaces. A subclass gives `_plain(*trees)` and `_launch(spec,
+    operands, out)`, operands being each tree's 12 [n, B] views."""
+
+    @staticmethod
+    def operands(spec: FieldSpec, trees):
+        """Each tree's 12 coefficients as [n, B] views of its leaves, which
+        the kernel reads where they lie (B: the broadcast batch, flattened;
+        a broadcast leaf has lane stride 0), and the batch's shape."""
+        leaves = [tree_leaves(t) for t in trees]
+        batch = torch.broadcast_shapes(*(x.shape[1:] for ls in leaves for x in ls))
+        return [[x.expand(spec.n, *batch).reshape(spec.n, -1) for x in ls]
+                for ls in leaves], batch
+
+    def __call__(self, spec: FieldSpec, *trees):
+        leaves = [tree_leaves(t) for t in trees]
+        flat = [x for ls in leaves for x in ls]
+        dev = flat[0].device
+        if any(x.device != dev for x in flat):
+            raise ValueError(f"operands on {sorted({str(x.device) for x in flat})}")
+        if dev.type == "cpu":
+            return self._plain(*trees)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        if any(len(ls) != 12 for ls in leaves) or any(
+                x.dtype != torch.int32 or x.dim() < 2 or x.shape[0] != spec.n
+                for x in flat):
+            raise ValueError(f"expected Fq12 trees of 12 [{spec.n}, ...] int32 tensors")
+        operands, batch = self.operands(spec, trees)
+        out = torch.empty((12, spec.n, operands[0][0].shape[1]), dtype=torch.int32,
+                          device=dev)
+        if out.shape[2]:
+            self._launch(spec, operands, out)
+            self._launched(spec)
+        o = out.reshape(12, spec.n, *batch)
+        return tuple(tuple((o[6 * h + 2 * s], o[6 * h + 2 * s + 1]) for s in range(3))
+                     for h in range(2))
+
+
+class _F12CycloSq(_F12Kernel):
+    """The cyclotomic squaring of an Fq12 batch, ops/tower.py::f12_cyclo_sq:
+    one launch of csrc/cyclo_sq.cu's kernel on the card; plain version
+    tower.f12_cyclo_sq_plain."""
 
     name = "f12_cyclo_sq"
 
@@ -575,31 +620,35 @@ class _F12CycloSq(_KernelWrapper):
                 *(int(v) for v in spec.to_mont(1)))
         return one
 
-    def __call__(self, spec: FieldSpec, a):
+    def _plain(self, a):
         from .tower import f12_cyclo_sq_plain  # the tower builds on this module
 
-        leaves = tree_leaves(a)
-        dev = leaves[0].device
-        if any(x.device != dev for x in leaves):
-            raise ValueError(f"operands on {sorted({str(x.device) for x in leaves})}")
-        if dev.type == "cpu":
-            return f12_cyclo_sq_plain(a)
-        if dev.type != "cuda":
-            raise ValueError(f"unsupported device {dev}")
-        if len(leaves) != 12 or any(
-                x.dtype != torch.int32 or x.dim() < 2 or x.shape[0] != spec.n
-                for x in leaves):
-            raise ValueError(f"expected an Fq12 tree of 12 [{spec.n}, ...] int32 tensors")
-        n = spec.n
-        batch = torch.broadcast_shapes(*(x.shape[1:] for x in leaves))
-        coeffs = [x.expand(n, *batch).reshape(n, -1) for x in leaves]  # views
-        out = torch.empty((12, n, coeffs[0].shape[1]), dtype=torch.int32, device=dev)
-        if out.shape[2]:
-            kernels.launch_f12_cyclo_sq(self._constants(spec), coeffs, self._one(spec), out)
-            self._launched(spec)
-        o = out.reshape(12, n, *batch)
-        return tuple(tuple((o[6 * h + 2 * s], o[6 * h + 2 * s + 1]) for s in range(3))
-                     for h in range(2))
+        return f12_cyclo_sq_plain(a)
+
+    def _launch(self, spec: FieldSpec, operands, out):
+        kernels.launch_f12_cyclo_sq(self._constants(spec), operands[0], self._one(spec), out)
+
+
+class _F12Mul(_F12Kernel):
+    """The Fq12 multiply of two batches, ops/tower.py::f12_mul: one launch
+    of csrc/f12_mul.cu's kernel on the card, whose square form (b is a,
+    leaf for leaf: f12_sq) reads the one operand once; plain version
+    tower.f12_mul_plain."""
+
+    name = "f12_mul"
+
+    def __call__(self, spec: FieldSpec, a, b):
+        if a is b or all(x is y for x, y in zip(tree_leaves(a), tree_leaves(b))):
+            return super().__call__(spec, a)
+        return super().__call__(spec, a, b)
+
+    def _plain(self, a, b=None):
+        from .tower import f12_mul_plain  # the tower builds on this module
+
+        return f12_mul_plain(a, a if b is None else b)
+
+    def _launch(self, spec: FieldSpec, operands, out):
+        kernels.launch_f12_mul(self._constants(spec), operands, out)
 
 
 mont_mul = _MontMul()
@@ -607,7 +656,8 @@ mont_redc = _MontRedc()
 mont_mul_tc = _MontMulTc()
 mont_mul_shape = _MontMulShape()
 f12_cyclo_sq = _F12CycloSq()
-KERNELS = (mont_mul, mont_redc, mont_mul_tc, mont_mul_shape, f12_cyclo_sq)
+f12_mul = _F12Mul()
+KERNELS = (mont_mul, mont_redc, mont_mul_tc, mont_mul_shape, f12_cyclo_sq, f12_mul)
 
 # which kernel `mul` uses: "cios" (mont_mul) or "tc" (mont_mul_tc). None
 # until first use, when CELO_MUL_MXU=1 in the environment selects "tc", as

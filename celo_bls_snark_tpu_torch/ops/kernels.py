@@ -99,8 +99,8 @@ def build() -> dict:
 def _kernel_name(mangled: str):
     """`mont_mul_kernel<25,128,4>` from a mangled entry name (template
     arguments read off it), or None for another function: the mont_*
-    kernels and f12_cyclo_sq_kernel."""
-    k = re.search(r"\d+((?:mont_\w+?|f12_cyclo_sq)_kernel)I((?:Li\d+E)+)E", mangled)
+    kernels, f12_cyclo_sq_kernel and f12_mul_kernel."""
+    k = re.search(r"\d+((?:mont_\w+?|f12_cyclo_sq|f12_mul)_kernel)I((?:Li\d+E)+)E", mangled)
     if k is None:
         return None
     return f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
@@ -205,9 +205,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.celo_f12_cyclo_sq.argtypes = [
         *consts, ptr, ptr, ptr, ptr, ptr, ctypes.c_int64, ptr,
     ]
+    lib.celo_f12_mul.argtypes = [
+        *consts, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int64, ptr,
+    ]
     for fn in (lib.celo_mont_mul, lib.celo_mont_mul_shape,
                lib.celo_mont_mul_tc, lib.celo_mont_redc,
-               lib.celo_mont_mul_tc_occupancy, lib.celo_f12_cyclo_sq):
+               lib.celo_mont_mul_tc_occupancy, lib.celo_f12_cyclo_sq,
+               lib.celo_f12_mul):
         fn.restype = ctypes.c_int
     return lib
 
@@ -318,6 +322,23 @@ def launch_f12_cyclo_sq(consts: FieldConstants, coeffs, one, out):
         ctypes.c_int64(out.shape[2]), _stream(out),
     )
     _check(err, "f12_cyclo_sq")
+
+
+def launch_f12_mul(consts: FieldConstants, operands, out):
+    """out = the Fq12 product of the batches whose 12 coefficients each are
+    `operands` (one list of 12 [n, B] int32 tensors on the card for a
+    square, two for a product; any strides: read where they lie); out: a
+    contiguous [12, n, B] int32 tensor on the same card."""
+    coeffs = [x for side in operands for x in side]
+    k = len(coeffs)
+    ptrs = (ctypes.c_void_p * k)(*(x.data_ptr() for x in coeffs))
+    rows = (ctypes.c_int64 * k)(*(x.stride(0) for x in coeffs))
+    cols = (ctypes.c_int64 * k)(*(x.stride(1) for x in coeffs))
+    err = library().celo_f12_mul(
+        *consts.args, ctypes.c_int(len(operands)), ptrs, rows, cols, _ptr(out),
+        ctypes.c_int64(out.shape[2]), _stream(out),
+    )
+    _check(err, "f12_mul")
 
 
 def launch_mont_redc(consts: FieldConstants, x, out):

@@ -8,10 +8,11 @@ Elements are nested tuples of [n_limbs, B] int32 tensors:
 
 All multiplications are STACKED: a tower-level product expands (via
 Karatsuba at every level) into a list of independent Fq multiplies that run
-as ONE wide kernel call (fq.mul_many). An Fq12 mul is exactly one
-mont_mul launch of width 54*B, which keeps kernel launches flat as the
-tower deepens. The cyclotomic squaring is one kernel of its own on the
-card (f12_cyclo_sq), products and combination together.
+as ONE wide kernel call (fq.mul_many): the composition of an Fq12 mul is
+one mont_mul launch of width 54*B, which keeps kernel launches flat as the
+tower deepens. On the card the Fq12 multiply (f12_mul, f12_sq) and the
+cyclotomic squaring (f12_cyclo_sq) are one kernel each, products and
+combination together; their compositions stay as the _plain versions.
 
 Host oracle: hostmath/{fp2,fq12}.py (cross-validated in tests).
 """
@@ -232,7 +233,17 @@ def f12_add(a, b):
 
 
 def f12_mul(a, b):
-    """One kernel launch of width 54*B."""
+    """f12_mul_plain's function. CUDA tensors: ONE launch of the f12_mul
+    kernel (ops/field.py, csrc/f12_mul.cu), limb for limb the composition's
+    result, where the composition is 245 launches; a square (b is a) loads
+    its operand once. CPU tensors: the composition."""
+    return field.f12_mul(FQ, a, b)
+
+
+def f12_mul_plain(a, b):
+    """The plain version of the f12_mul kernel, and the composition it
+    replaces: Karatsuba at every level, 54 fq products in ONE 54*B-wide
+    multiply launch, then the combines."""
     a0, a1 = a
     b0, b1 = b
     v0, v1, t = f6_mul_batch([(a0, b0), (a1, b1), (f6_add(a0, a1), f6_add(b0, b1))])

@@ -22,7 +22,10 @@ Phases (each prints one line or more; any failure exits non-zero):
      Then the cyclotomic squaring's kernel (f12_cyclo_sq, csrc/
      cyclo_sq.cu) at 1, 300, 6,000 and 2^16 lanes, exactly against the
      composition it replaces on the card and on the CPU, timed beside it
-     (one `cyclo_sq` line; its row joins the `kernels` line);
+     (one `cyclo_sq` line); and so the Fq12 multiply's kernel (f12_mul,
+     csrc/f12_mul.cu), a product and a square, at 1, 33, 300, 600, 6,000
+     and 12,000 lanes (one `f12_mul` line); their rows join the `kernels`
+     line;
   3. entry(): the 8-message, 4-validator verification is True on the
      card, a tampered batch is False, and the card's final-exponentiation
      output equals the CPU run's limb for limb;
@@ -227,6 +230,10 @@ KERNEL_INFO = {
                      "replaces": "no TPU kernel: ops/tower.py's composition "
                                  "f12_cyclo_sq_plain (one mont_mul launch and "
                                  "118 PyTorch launches)"},
+    "f12_mul": {"source": SRC + "f12_mul.cu",
+                "replaces": "no TPU kernel: ops/tower.py's composition "
+                            "f12_mul_plain (one mont_mul launch and 244 "
+                            "PyTorch launches)"},
 }
 NO_LIBRARY = ("no PyTorch call computes a multi-precision Montgomery "
               "product or reduction")
@@ -259,10 +266,15 @@ TIMED = {
                     (49, 5 * L_MSM), (49, 6 * L_MSM), (49, 1 << 20)],
 }
 MAIN_WIDTH = {"mont_mul": (25, 12288), "mont_redc": (25, 2),
-              "mont_mul_tc": (49, 6 * L_MSM), "f12_cyclo_sq": (25, 1)}
+              "mont_mul_tc": (49, 6 * L_MSM), "f12_cyclo_sq": (25, 1),
+              "f12_mul": (25, 33)}
 # the final exponentiation's lanes: the grouped check (1), the strict and
 # individual strategies (300, 6,000); and a width where the bytes bind
 CYCLO_WIDTHS = [1, 300, 6000, 1 << 16]
+# the Fq12 multiply's lanes: the final exponentiation's and the tree
+# product's (1, 300, 6,000), the Miller loops' squarings (2, 33, 600,
+# 12,000)
+F12_MUL_WIDTHS = [1, 33, 300, 600, 6000, 12000]
 SHAPE_B = 1 << 16  # the launch-shape sweep's width, n = 25
 
 
@@ -279,10 +291,14 @@ def bound(name, n, B):
     on the CUDA cores (2 W^2) and does 2 (2n 2n + 4n 2n) = 24 n^2 8-bit
     operations on the tensor cores; its operations time is the larger of
     the two. f12_cyclo_sq reads 12 coefficients and writes 12 (96 n bytes
-    a lane) and runs 30 mont_mul products a lane."""
+    a lane) and runs 30 mont_mul products a lane; f12_mul reads 24 and
+    writes 12 (144 n bytes; f12_sq, its square, reads 12) and runs 54."""
     W = (n + 1) // 2
     if name == "f12_cyclo_sq":
         nbytes, t_ops = 96 * n * B, 30 * 4 * W * W * B / LANE_OPS_PER_S
+    elif name in ("f12_mul", "f12_sq"):
+        nbytes = (144 if name == "f12_mul" else 96) * n * B
+        t_ops = 54 * 4 * W * W * B / LANE_OPS_PER_S
     elif name == "mont_redc":
         nbytes, t_ops = 8 * n * B, 2 * W * W * B / LANE_OPS_PER_S
     elif name == "mont_mul_tc":
@@ -494,42 +510,66 @@ def lazy_f12(B, gen):
                        for k in range(3)) for h in range(2))
 
 
-def phase_cyclo_sq():
-    """The cyclotomic squaring's kernel (csrc/cyclo_sq.cu) at the final
-    exponentiation's widths and at 2^16 lanes, limb for limb against the
-    composition it replaces on the card (its plain version on CUDA
-    tensors: one mont_mul launch and 118 PyTorch launches) and, up to
+def f12_kernel_rows(name, widths, cases, seed):
+    """An Fq12 kernel at `widths`, limb for limb against the composition it
+    replaces on the card (its plain version on CUDA tensors) and, up to
     6,000 lanes, on the CPU; each timed from a replayed CUDA graph of 200
     launches (`ms`), issued from Python (`eager_ms`), beside the
-    composition from a replayed graph (`plain_ms`) and the bound. One
-    `cyclo_sq` line; returns (rows, max |err|)."""
+    composition from a replayed graph (`plain_ms`) and the bound. `cases`:
+    (op, operands, kernel, plain), op naming the bound. Returns (rows,
+    max |err|)."""
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(20261021)
+    gen.manual_seed(seed)
     rows, worst = [], 0
-    for B in CYCLO_WIDTHS:
-        a = lazy_f12(B, gen)
+    for B in widths:
+        args = [lazy_f12(B, gen) for _ in range(max(c[1] for c in cases))]
+        for op, k, kern_fn, plain_fn in cases:
+            def kern(a=args[:k], fn=kern_fn):
+                return fn(*a)
 
-        def kern(a=a):
-            return TT.f12_cyclo_sq(a)
+            def plain(a=args[:k], fn=plain_fn):
+                return fn(*a)
 
-        def plain(a=a):
-            return TT.f12_cyclo_sq_plain(a)
+            got = torch.stack(tree_leaves(kern()))
+            err = max_err(got, torch.stack(tree_leaves(plain())))
+            if B <= 6000:
+                cpu = plain_fn(*(tree_map(lambda t: t.cpu(), a) for a in args[:k]))
+                err = max(err, max_err(got.cpu(), torch.stack(tree_leaves(cpu))))
+            if err:
+                fail(f"{name} ({op}) B={B}: max |kernel - plain| = {err}")
+            worst = max(worst, err)
+            bms, by = bound(op, F.FQ.n, B)
+            rows.append({"op": op, "n": F.FQ.n, "B": B, "max_abs_err": err,
+                         "ms": time_ms(kern, 200, graph=True),
+                         "eager_ms": time_ms(kern, 200),
+                         "plain_ms": time_ms(plain, 20, graph=True),
+                         "bound_ms": bms, "bound_by": by})
+    return rows, worst
 
-        got = torch.stack(tree_leaves(kern()))
-        err = max_err(got, torch.stack(tree_leaves(plain())))
-        if B <= 6000:
-            cpu = TT.f12_cyclo_sq_plain(tree_map(lambda t: t.cpu(), a))
-            err = max(err, max_err(got.cpu(), torch.stack(tree_leaves(cpu))))
-        if err:
-            fail(f"f12_cyclo_sq B={B}: max |kernel - plain| = {err}")
-        worst = max(worst, err)
-        bms, by = bound("f12_cyclo_sq", F.FQ.n, B)
-        rows.append({"n": F.FQ.n, "B": B, "max_abs_err": err,
-                     "ms": time_ms(kern, 200, graph=True),
-                     "eager_ms": time_ms(kern, 200),
-                     "plain_ms": time_ms(plain, 20, graph=True),
-                     "bound_ms": bms, "bound_by": by})
+
+def phase_cyclo_sq():
+    """The cyclotomic squaring's kernel (csrc/cyclo_sq.cu) at the final
+    exponentiation's widths and at 2^16 lanes (f12_kernel_rows; its
+    composition is one mont_mul launch and 118 PyTorch launches). One
+    `cyclo_sq` line; returns (rows, max |err|)."""
+    rows, worst = f12_kernel_rows(
+        "f12_cyclo_sq", CYCLO_WIDTHS,
+        [("f12_cyclo_sq", 1, TT.f12_cyclo_sq, TT.f12_cyclo_sq_plain)], 20261021)
     line({"phase": "cyclo_sq", "rows": rows,
+          "card": torch.cuda.get_device_name(0)})
+    return rows, worst
+
+
+def phase_f12_mul():
+    """The Fq12 multiply's kernel (csrc/f12_mul.cu), a product of two
+    batches and a square (one operand, read once), at the pairing's widths
+    (f12_kernel_rows; its composition is one mont_mul launch and 244
+    PyTorch launches). One `f12_mul` line; returns (rows, max |err|)."""
+    rows, worst = f12_kernel_rows(
+        "f12_mul", F12_MUL_WIDTHS,
+        [("f12_mul", 2, TT.f12_mul, TT.f12_mul_plain),
+         ("f12_sq", 1, TT.f12_sq, lambda a: TT.f12_mul_plain(a, a))], 20261022)
+    line({"phase": "f12_mul", "rows": rows,
           "card": torch.cuda.get_device_name(0)})
     return rows, worst
 
@@ -1550,6 +1590,7 @@ def main():
     smi = phase_device()
     rows, worst = phase_kernels()
     rows["f12_cyclo_sq"], worst["f12_cyclo_sq"] = phase_cyclo_sq()
+    rows["f12_mul"], worst["f12_mul"] = phase_f12_mul()
     phase_entry()
     by_path = {}
     by_path["verify"], main_inputs = phase_main()

@@ -133,7 +133,8 @@ def test_final_exponentiation_launches():
     program(f)  # capture and replay
     aotcache.reset_replays()
     program(f)
-    assert aotcache.graph_launches() == {"mont_mul": fused[0], "f12_cyclo_sq": 316}
+    assert aotcache.graph_launches() == {"mont_mul": fused[0], "f12_cyclo_sq": 316,
+                                         "f12_mul": 35}
     aotcache.clear()
 
 
