@@ -19,6 +19,7 @@ from ..utils.profiling import device_span, device_sync, stage
 from ..utils.tree import tree_map
 from .field import FQ
 from . import curve as dc
+from . import hash_to_g1 as h2g
 from . import pairing as dp
 from . import tower as tw
 
@@ -153,15 +154,15 @@ def batch_verify_messages_device(sigs_jac, apks_aff, domain, messages,
     CIP22 over the direct hasher, as syncing nodes hash committed seals)
     feeding the grouped (G+1)-pairing check. The rare no-valid-counter
     lanes (probability ~0.58^num_counters) are hashed by the host hasher
-    and merged on the card.
+    and merged on the card (hash_to_g1.py::hash_messages_device).
 
     sigs_jac: G1 projective [len(messages)]; apks_aff: G2 affine [groups];
     messages: equal-length byte strings, group g owning the contiguous
     lanes [g*B, (g+1)*B). extra_data: shared bytes or a per-message list.
     Returns a bool tensor of shape [1]. Its stages are timed under
-    utils/profiling.py's names h2g.crh (CIP22) or h2g.pack (before CIP22),
+    utils/profiling.py's names h2g.message_crh (CIP22), h2g.pack,
     h2g.round1, h2g.round2 and bls.pairing."""
-    hashes_jac, _fallback = hash_messages_device(
+    hashes_jac, _fallback = h2g.hash_messages_device(
         domain, messages, extra_data, composite, num_counters, compat,
         sigs_jac[0].device, cip22,
     )
@@ -169,40 +170,6 @@ def batch_verify_messages_device(sigs_jac, apks_aff, domain, messages,
         ok = batch_verify_grouped_aot(sigs_jac, hashes_jac, apks_aff, groups)
         device_sync(ok)
     return ok
-
-
-def hash_messages_device(domain, messages, extra_data=b"", composite=False,
-                         num_counters: int = 24, compat: bool = True,
-                         device="cuda", cip22: bool = True):
-    """The message hashes of batch_verify_messages_device: (G1 projective
-    batch [len(messages)] on `device`, the lanes hashed by the host
-    fallback as a list). cip22=False hashes by the try-and-increment
-    before CIP22 over the direct hasher; the composite hasher runs only
-    with CIP22."""
-    from ..hashers.composite import composite_hasher
-    from ..hashers.direct import DirectHasher
-    from .hash_to_g1 import composite_crh_bytes, hash_to_g1_device, host_fallback
-
-    if composite and not cip22:
-        raise ValueError("the try-and-increment before CIP22 runs the direct hasher only")
-    if composite:
-        with stage("h2g.crh"):
-            crh_u8 = composite_crh_bytes(messages, device)
-    else:
-        crh_u8 = None
-    hashes_jac, has = hash_to_g1_device(
-        domain, messages, extra_data, compat=compat,
-        num_counters=num_counters, crh_u8=crh_u8, device=device, cip22=cip22,
-    )
-    if has.all():
-        return hashes_jac, []
-    hasher = composite_hasher() if composite else DirectHasher()
-    patch = host_fallback(hasher, domain, messages, extra_data, has, compat, cip22)
-    idx = torch.tensor(list(patch), dtype=torch.int64, device=hashes_jac[0].device)
-    pts = dc.g1_pack(list(patch.values()), idx.device)
-    hashes_jac = tree_map(lambda full, part: full.index_copy(-1, idx, part),
-                          hashes_jac, pts)
-    return hashes_jac, list(patch)
 
 
 def _interleave(a, b):

@@ -21,35 +21,42 @@ mont_mul and mont_redc kernels:
      is set) and the G1 cofactor multiply.
 
 The try-and-increment before CIP22 (try_and_increment.rs, over the
-DirectHasher), as syncing nodes hash committed seals, shares steps 3-6 (the
-round's back end, _round_back); its front end hashes every (counter,
-message) lane whole, the CRH of c || extra || msg and then the XOF of the
-digest, over lane messages formed on the card from the messages' words.
+DirectHasher), as syncing nodes hash committed seals, runs in the same
+round (_round): only the lane hash differs. Before CIP22 every (counter,
+message) lane is hashed whole, the CRH of c || extra || msg and then the
+XOF of the digest; under CIP22 the XOF of c || extra || CRH digest. Either
+way the lane messages are formed on the card (_lane_words) from the rows'
+words (lane_message_words: the messages, or their CRH digests), and steps
+3-6 are the round's back end (_round_back).
 
 Messages with no valid counter in [0, C1) go through a second round over
-the counters [C1, C) and are merged on the card; only the [B] `has` mask
-crosses to the host. Where the JAX package caches one executable per shape
-(h2g_crh, h2g_round, h2g_merge), this module caches one CUDA graph per
-shape under the same tags (utils/aotcache.py; the rounds before CIP22,
-which the JAX package lacks, under h2g_round_direct): the CRH, each round
-and the merge take device words and indices, and their host reads come
-after the replay. Data (the Tonelli-Shanks tables, the cofactor's bits,
-the Blake2s state) is cached per device, outside any capture.
+the counters [C1, C), indexing the same words on the card, and are merged
+on the card; only the round's [2, m] status crosses to the host. The
+lanes the card leaves are hashed by the host reference and merged on the
+card (hash_messages_device). Where the JAX package caches one executable
+per shape (h2g_crh, h2g_round, h2g_merge), this module caches one CUDA
+graph per shape (utils/aotcache.py; the rounds under
+h2g_round_<cip22|direct>_...): the CRH, each round and the merge take
+device words and indices, and their host reads come after the replay.
+Data (the Tonelli-Shanks tables, the cofactor's bits, the Blake2s state)
+is cached per device, outside any capture.
 
 Bit-exactness oracles: hash_to_curve/try_and_increment_cip22.py and
 try_and_increment.py.
 """
 
-import os
-
 import numpy as np
 import torch
 
 from ..hash_to_curve.common import G1_BYTES, hash_length
+from ..hash_to_curve.try_and_increment import TryAndIncrement
+from ..hash_to_curve.try_and_increment_cip22 import TryAndIncrementCIP22
+from ..hashers.composite import composite_hasher
+from ..hashers.direct import DirectHasher
 from ..hostmath.params import G1_COFACTOR, P
 from ..utils import aotcache
 from ..utils.devices import require_device
-from ..utils.profiling import count, device_span, stage
+from ..utils.profiling import count, device_span, device_sync, stage
 from ..utils.tree import tree_map
 from . import blake2s as db
 from . import curve as dc
@@ -59,9 +66,8 @@ TWO_ADICITY = 46
 _S = (P - 1) >> TWO_ADICITY  # odd
 assert _S % 2 == 1
 HASH_BYTES = hash_length(G1_BYTES)  # 64: two Blake2s blocks of XOF output
-# round-1 counter width (CELO_H2G_ROUND1 overrides it, as in the JAX
-# package): with miss probability 0.58 per counter the two-round lane cost
-# C1 + 0.58^C1 (C - C1) is least near C1 = 5
+# round-1 counter width: with miss probability 0.58 per counter the
+# two-round lane cost C1 + 0.58^C1 (C - C1) is least near C1 = 5
 ROUND1_COUNTERS = 5
 # the counter (utils/profiling.py::count) of a call's round-2 lanes
 ROUND2_LANES = "h2g.round2_lanes"
@@ -257,20 +263,10 @@ def _round_back(xof, compat: bool, nc: int, m: int):
     return dc.g1.scalar_mul_const(G1_COFACTOR, pt), has
 
 
-def _round_body(words, msg_len: int, domain: bytes, compat: bool, nc: int, m: int):
-    """One CIP22 round's device program on its XOF message words [16
-    nblocks, nc m]: the Blake2Xs XOF, then _round_back. Returns
-    (projective [m] tree, has [m] bool tensor). On the card the device span
-    gpu.h2g.round."""
-    with device_span("gpu.h2g.round", words):
-        xof = db.blake2xs_batch(words, msg_len, HASH_BYTES, person=domain)
-        return _round_back(xof, compat, nc, m)
-
-
 def _lane_words(words, c_lo: int, nc: int):
-    """The pre-CIP22 lanes' message words [16 nblocks, nc m] from the
-    messages' words [16 nblocks, m], whose first byte is left 0 for the
-    counter: lane c * m + i is c_lo + c || extra_data_i || message_i."""
+    """A round's lane message words [16 nblocks, nc m] from its rows' words
+    [16 nblocks, m] (lane_message_words), whose first byte is left 0 for the
+    counter: lane c * m + i is c_lo + c || extra_data_i || row_i."""
     m = words.shape[1]
     ctr = torch.arange(c_lo, c_lo + nc, dtype=words.dtype, device=words.device)
     first = (words[0][None, :] | ctr[:, None]).reshape(1, nc * m)
@@ -278,103 +274,96 @@ def _lane_words(words, c_lo: int, nc: int):
     return torch.cat([first, rest])
 
 
-def _direct_round_body(words, idx, msg_len: int, domain: bytes, compat: bool,
-                       c_lo: int, nc: int, m: int):
-    """One pre-CIP22 round's device program (try_and_increment.rs): on the
-    messages' words [16 nblocks, B] (lane_message_words), of the lanes
-    `idx` [m] when given, else of all B = m, the DirectHasher's whole hash
-    of every (counter, message) lane (the Blake2s CRH of c || extra || msg,
-    then the Blake2Xs XOF of its digest; the device span
-    gpu.h2g.lane_hash), then _round_back. A first valid candidate whose
-    cofactor multiple is the point at infinity is not a hash: the host
-    path moves on to the next counter, so the message goes to the host.
-    Returns (projective [m] tree, [2, m] bool tensor: found, to the host).
-    On the card the device span gpu.h2g.round."""
+def _round_body(words, idx, msg_len: int, domain: bytes, compat: bool, cip22: bool,
+                c_lo: int, nc: int, m: int):
+    """One round's device program on the rows' words [16 nblocks, B]
+    (lane_message_words), of the rows `idx` [m] when given, else of all
+    B = m. The hash of every (counter, row) lane is the device span
+    gpu.h2g.lane_hash: under CIP22 the Blake2Xs XOF of c || extra || CRH
+    digest (try_and_increment_cip22.rs), before CIP22 the DirectHasher's
+    whole hash, the Blake2s CRH of c || extra || message and then the XOF
+    of its digest (try_and_increment.rs). Then _round_back. A first valid
+    candidate whose cofactor multiple is the point at infinity is not a
+    hash: both references move on to the next counter, so the message goes
+    to the host. Returns (projective [m] tree, [2, m] bool tensor: found,
+    to the host). On the card the device span gpu.h2g.round."""
     with device_span("gpu.h2g.round", words):
         if idx is not None:
             words = torch.index_select(words, 1, idx)
         lanes = _lane_words(words, c_lo, nc)
         with device_span("gpu.h2g.lane_hash", lanes):
-            xof = db._direct_hash_words(lanes, msg_len, HASH_BYTES, domain)
+            if cip22:
+                xof = db.blake2xs_batch(lanes, msg_len, HASH_BYTES, person=domain)
+            else:
+                xof = db._direct_hash_words(lanes, msg_len, HASH_BYTES, domain)
         jac, has = _round_back(xof, compat, nc, m)
         host = has & dc.g1.is_infinity(jac)
         return jac, torch.stack([has & ~host, host])
 
 
-def _fused_round(crh_u8, ed, c_lo: int, nc: int, domain: bytes,
-                 compat: bool, device):
-    """One round for counters [c_lo, c_lo + nc) over the messages whose CRH
-    digests are the rows of crh_u8 [m, crh_len] (32 bytes for the
-    DirectHasher, 48 for the composite Pedersen CRH): the XOF messages are
-    built on the host and copied to `device`, then _round_body runs as the
-    graph h2g_round_<msg_len>_<domain>_<compat>_<nc>_<m>.
+def _round(words, idx, msg_len: int, domain: bytes, compat: bool, cip22: bool,
+           c_lo: int, nc: int):
+    """One round for counters [c_lo, c_lo + nc) over the rows whose words
+    are the columns of `words` on the card, or over the columns `idx` (a
+    device tensor) of them: _round_body as the graph
+    h2g_round_<cip22|direct>_<msg_len>_<domain>_<compat>_<c_lo>_<nc>_<m>.
 
-    Returns (projective [m] tree on `device`, has [m] numpy bool); lanes
-    with has=False hold garbage points."""
-    m, crh_len = crh_u8.shape
-    edlen = ed.shape[-1]
-    msg_len = 1 + edlen + crh_len
-    nblocks = max(1, (msg_len + 63) // 64)
-    # lane c * m + i: the XOF message c || extra_data_i || crh_i
-    buf = np.zeros((nc * m, nblocks * 64), dtype=np.uint8)
-    buf[:, 0] = np.repeat(
-        np.arange(c_lo, c_lo + nc, dtype=np.uint16).astype(np.uint8), m
-    )
-    if edlen:
-        # ed: [edlen] (shared) or [m, edlen] (per-message extra_data)
-        buf[:, 1 : 1 + edlen] = np.tile(ed, (nc, 1)) if ed.ndim == 2 else ed
-    buf[:, 1 + edlen : msg_len] = np.tile(crh_u8, (nc, 1))
-    words = db.words_to_device(buf.view("<u4").T.copy(), device)
-    fn = aotcache.jit(f"h2g_round_{msg_len}_{domain.hex()}_{int(compat)}_{nc}_{m}",
-                      lambda wds: _round_body(wds, msg_len, domain, compat, nc, m))
-    jac, has = fn(words)
+    Returns (projective [m] tree on the card, found [m], to the host [m]),
+    the last two numpy bool; lanes found False hold garbage points."""
+    m = words.shape[1] if idx is None else idx.shape[0]
+    variant = "cip22" if cip22 else "direct"
+    fn = aotcache.jit(
+        f"h2g_round_{variant}_{msg_len}_{domain.hex()}_{int(compat)}_{c_lo}_{nc}_{m}",
+        lambda wds, *ix: _round_body(wds, ix[0] if ix else None, msg_len, domain,
+                                     compat, cip22, c_lo, nc, m))
+    jac, status = fn(words) if idx is None else fn(words, idx)
     # the one host read of the round (it waits for the round's work)
-    return jac, has.cpu().numpy()
+    found, host = status.cpu().numpy()
+    return jac, found, host
 
 
-def lane_message_words(messages, ed: np.ndarray, device):
-    """The pre-CIP22 round's message words on `device`: int64 [16 nblocks,
-    B] of 0 || extra_data_i || message_i, zero-padded to whole 64-byte
-    blocks; the first byte is the counter's, which the round sets on the
-    card (_lane_words). The messages' bytes cross to the card as they are
-    and the words are formed there. Returns (words, msg_len)."""
-    B = len(messages)
-    lengths = set(map(len, messages))
-    if len(lengths) != 1:
-        raise ValueError("the pre-CIP22 round takes messages of one length")
-    L = lengths.pop()
+def lane_message_words(rows, ed: np.ndarray, device):
+    """The rounds' row words on `device`: int64 [16 nblocks, B] of
+    0 || extra_data_i || row_i, zero-padded to whole 64-byte blocks; the
+    first byte is the counter's, which each round sets on the card
+    (_lane_words). Row i is message i before CIP22 and its CRH digest under
+    CIP22. rows: B byte strings of one length, a numpy [B, L] uint8 array
+    or a uint8 tensor on the card; they cross to the card as they are and
+    the words are formed there. Returns (words, msg_len)."""
+    B = len(rows)
+    if not isinstance(rows, torch.Tensor):
+        if not isinstance(rows, np.ndarray):
+            lengths = set(map(len, rows))
+            if len(lengths) != 1:
+                raise ValueError("a round takes rows of one length")
+            rows = np.frombuffer(bytearray().join(rows), dtype=np.uint8).reshape(
+                B, lengths.pop())
+        rows = torch.from_numpy(np.require(rows, np.uint8, "CW"))
     edlen = ed.shape[-1]
-    msg_len = 1 + edlen + L
+    msg_len = 1 + edlen + rows.shape[1]
     buf = torch.zeros((B, max(1, (msg_len + 63) // 64) * 64), dtype=torch.uint8,
                       device=device)
     if edlen:
         buf[:, 1 : 1 + edlen] = torch.from_numpy(ed.copy()).to(device)
-    if L:
-        raw = torch.frombuffer(bytearray().join(messages), dtype=torch.uint8)
-        buf[:, 1 + edlen : msg_len] = raw.to(device).view(B, L)
+    buf[:, 1 + edlen : msg_len] = rows.to(device)
     # little-endian words, as int64 holding [0, 2^32)
     words = buf.view(torch.int32).T.to(torch.int64) & db.MASK32
     return words.contiguous(), msg_len
 
 
-def _direct_round(words, idx, msg_len: int, domain: bytes, compat: bool,
-                  c_lo: int, nc: int):
-    """One pre-CIP22 round for counters [c_lo, c_lo + nc) over the messages
-    whose words are the columns of `words` on the card, or over the columns
-    `idx` (a device tensor) of them: _direct_round_body as the graph
-    h2g_round_direct_<msg_len>_<domain>_<compat>_<c_lo>_<nc>_<m>.
+def _message_crh_rows(domain: bytes, messages, device):
+    """The DirectHasher's CRH digests of `messages` (direct.rs:23-40) as a
+    uint8 tensor [B, 32] on `device`, by the graph h2g_crh_<len>_<domain>."""
+    mlen = len(messages[0])
 
-    Returns (projective [m] tree on the card, found [m], to the host [m]),
-    the last two numpy bool; lanes found False hold garbage points."""
-    m = words.shape[1] if idx is None else idx.shape[0]
-    fn = aotcache.jit(
-        f"h2g_round_direct_{msg_len}_{domain.hex()}_{int(compat)}_{c_lo}_{nc}_{m}",
-        lambda wds, *ix: _direct_round_body(wds, ix[0] if ix else None, msg_len, domain,
-                                            compat, c_lo, nc, m))
-    jac, status = fn(words) if idx is None else fn(words, idx)
-    # the one host read of the round (it waits for the round's work)
-    found, host = status.cpu().numpy()
-    return jac, found, host
+    def digest_rows(wds):
+        crh = db.blake2s_batch(wds, mlen, digest_size=32,
+                               node_offset=db._xof_node_offset(HASH_BYTES), person=domain)
+        # [8, B] words -> [B, 32] little-endian bytes
+        return crh.T.to(torch.int32).contiguous().view(torch.uint8)
+
+    words = db.words_to_device(db.pack_messages(messages), device)
+    return aotcache.jit(f"h2g_crh_{mlen}_{domain.hex()}", digest_rows)(words)
 
 
 def _round2_chunks(pending, B: int, nc: int):
@@ -435,121 +424,103 @@ def hash_to_g1_device(domain: bytes, messages, extra_data=b"",
     """The try-and-increment core on `device`: returns (jac_points,
     has_mask), the hashed points as a projective batch on `device` and a
     numpy bool mask of the messages whose first valid counter fell inside
-    [0, num_counters). Lanes with has=False hold garbage: route them to the
-    host fallback (hash_to_g1_direct_cip22_batch does).
+    [0, num_counters) and gave a point. Lanes with has=False hold garbage:
+    hash_messages_device hashes them on the host.
 
     extra_data: shared bytes, or a list of B per-message byte strings of
     one length (all empty is the shared b"").
     crh_u8: optional precomputed CRH bytes [B, crh_len] uint8, the CIP22
-    CRH step. When None, the DirectHasher CRH (batched Blake2s) runs here;
-    pass the composite Pedersen digests (ops/pedersen.py::bh_crh_digests)
-    for the CompositeHasher path.
+    CRH step. When None, the DirectHasher CRH (batched Blake2s) runs here
+    and its digests stay on the card (the host stage h2g.message_crh);
+    pass the composite Pedersen digests (composite_crh_bytes) for the
+    CompositeHasher path.
 
     cip22=False: the try-and-increment before CIP22 (try_and_increment.rs)
     over the DirectHasher: every (counter, message) lane is hashed whole,
-    c || extra_data || message through the CRH and the XOF, its lanes'
-    messages formed on the card from the messages' bytes (the host stage
-    h2g.pack copies them in). It takes no crh_u8.
+    c || extra_data || message through the CRH and the XOF. It takes no
+    crh_u8.
 
-    Two rounds: counters [0, C1) for every message, then the remaining
-    counters for the unresolved messages only, padded to a fixed cap
-    (their lanes counted under ROUND2_LANES). First-valid-counter
-    semantics are kept exactly: a message reaches round 2 iff every
-    round-1 counter was invalid, and the rounds' counter ranges are
-    disjoint."""
+    Each round's lane messages are formed on the card from the rows (the
+    CRH digests under CIP22, the messages before it), which the host stage
+    h2g.pack copies in (lane_message_words). Two rounds: counters [0, C1)
+    for every message, then the remaining counters for the unresolved
+    messages only, padded to a fixed cap (their lanes counted under
+    ROUND2_LANES) and merged on the card. First-valid-counter semantics are
+    kept exactly: a message reaches round 2 iff every round-1 counter was
+    invalid, and the rounds' counter ranges are disjoint."""
     device = require_device(device)
     B = len(messages)
     C = num_counters
+    C1 = min(ROUND1_COUNTERS, C)
     ed = extra_data_rows(extra_data, B)
-    C1 = min(int(os.environ.get("CELO_H2G_ROUND1", ROUND1_COUNTERS)), C)
     if not cip22:
         if crh_u8 is not None:
             raise ValueError("the pre-CIP22 round hashes each lane whole: no crh_u8")
-        return _hash_direct(domain, messages, ed, compat, C, C1, device)
-
-    if crh_u8 is None:
-        with stage("h2g.crh"):
-            words = db.words_to_device(db.pack_messages(messages), device)
-            mlen = len(messages[0])
-            crh = aotcache.jit(f"h2g_crh_{mlen}_{domain.hex()}",
-                               lambda wds: db.blake2s_batch(
-                                   wds, mlen, digest_size=32,
-                                   node_offset=db._xof_node_offset(HASH_BYTES),
-                                   person=domain))(words)
-            # [B, 32] LE digest bytes
-            crh_u8 = crh.cpu().numpy().T.astype("<u4").copy().view(np.uint8)
+        rows = messages
+    elif crh_u8 is None:
+        with stage("h2g.message_crh"):
+            rows = _message_crh_rows(domain, messages, device)
+            device_sync(rows)
     else:
-        crh_u8 = np.asarray(crh_u8, dtype=np.uint8)
-        if crh_u8.shape[0] != B:
-            raise ValueError(f"{crh_u8.shape[0]} CRH rows for {B} messages")
+        rows = crh_u8
+        if len(rows) != B:
+            raise ValueError(f"{len(rows)} CRH rows for {B} messages")
 
-    with stage("h2g.round1"):
-        jac, has = _fused_round(crh_u8, ed, 0, C1, domain, compat, device)
-    return _round2(jac, has, ~has, C - C1, device, lambda idx, _idx_t: _fused_round(
-        crh_u8[idx], ed[idx] if ed.ndim == 2 else ed, C1, C - C1, domain, compat, device))
-
-
-def _hash_direct(domain, messages, ed, compat, C, C1, device):
-    """hash_to_g1_device with cip22=False."""
     with stage("h2g.pack"):
-        words, msg_len = lane_message_words(messages, ed, device)
+        words, msg_len = lane_message_words(rows, ed, device)
     with stage("h2g.round1"):
-        jac, has, host = _direct_round(words, None, msg_len, domain, compat, 0, C1)
-    return _round2(jac, has, ~has & ~host, C - C1, device, lambda _idx, idx_t: _direct_round(
-        words, idx_t, msg_len, domain, compat, C1, C - C1)[:2])
-
-
-def _round2(jac, has, pending, nc: int, device, run_chunk):
-    """Round 2 over the messages of the mask `pending` and the nc counters
-    after round 1's, in chunks (_round2_chunks): run_chunk(idx, idx_t), idx
-    the chunk's lanes in numpy and on the card, returns its (projective
-    tree, found numpy bool); its found lanes are merged into `jac` on the
-    card. Returns (jac, has), has a copy updated."""
-    has = has.copy()
-    chunks = _round2_chunks(np.nonzero(pending)[0] if nc > 0 else np.zeros(0, np.int64),
-                            len(has), nc)
+        jac, has, host = _round(words, None, msg_len, domain, compat, cip22, 0, C1)
+    pending = np.nonzero(~has & ~host)[0] if C > C1 else np.zeros(0, np.int64)
+    chunks = _round2_chunks(pending, B, C - C1)
     if chunks:
         with stage("h2g.round2"):
             for chunk, idx in chunks:
-                idx_t = torch.from_numpy(idx.astype(np.int64)).to(device)
-                jac2, has2 = run_chunk(idx, idx_t)
-                # merge on the card: lanes resolved in round 2 take the new
-                # point
+                idx_t = torch.from_numpy(idx).to(device)
+                jac2, found, _ = _round(words, idx_t, msg_len, domain, compat, cip22,
+                                        C1, C - C1)
+                # merge on the card: lanes resolved in round 2 take the new point
                 merge = aotcache.jit(f"h2g_merge_{len(idx)}", _merge)
-                jac = merge(jac, jac2, idx_t, torch.from_numpy(has2).to(device))
-                has[chunk[has2[:len(chunk)]]] = True
+                jac = merge(jac, jac2, idx_t, torch.from_numpy(found).to(device))
+                has[chunk[found[:len(chunk)]]] = True
     return jac, has
 
 
-def host_fallback(hasher, domain, messages, extra_data, has, compat=True,
-                  cip22=True):
-    """The reference's semantics for the messages with no valid counter in
-    [0, C): {lane: host affine point} from TryAndIncrementCIP22 over
-    `hasher`, or with cip22=False from TryAndIncrement (255 tries)."""
-    from ..hash_to_curve.try_and_increment import TryAndIncrement
-    from ..hash_to_curve.try_and_increment_cip22 import TryAndIncrementCIP22
-
+def hash_messages_device(domain, messages, extra_data=b"", composite=False,
+                         num_counters: int = 24, compat: bool = True,
+                         device="cuda", cip22: bool = True):
+    """The reference's hash of every message on `device`: (G1 projective
+    batch [len(messages)], the lanes hashed by the host fallback as a
+    list). hash_to_g1_device hashes on the card, by CIP22 over the
+    DirectHasher or, when `composite`, the composite hasher (its Pedersen
+    CRH the host stage h2g.message_crh); with cip22=False by the
+    try-and-increment before CIP22 over the DirectHasher. The lanes it
+    leaves (no valid counter in [0, num_counters), probability
+    ~0.58^num_counters, or a cofactor multiple at infinity) are hashed by
+    the host reference, TryAndIncrementCIP22 or TryAndIncrement over the
+    same hasher, and merged on the card."""
+    if composite and not cip22:
+        raise ValueError("the try-and-increment before CIP22 runs the direct hasher only")
+    device = require_device(device)
+    crh_u8 = None
+    if composite:
+        with stage("h2g.message_crh"):
+            crh_u8 = composite_crh_bytes(messages, device)
+    jac, has = hash_to_g1_device(domain, messages, extra_data, compat=compat,
+                                 num_counters=num_counters, crh_u8=crh_u8, device=device,
+                                 cip22=cip22)
+    lanes = np.nonzero(~has)[0]
+    if not len(lanes):
+        return jac, []
+    hasher = composite_hasher() if composite else DirectHasher()
     if cip22:
-        h2c = TryAndIncrementCIP22(hasher, "g1", compat)
-        hash_one = h2c.hash_with_attempt_cip22
+        hash_one = TryAndIncrementCIP22(hasher, "g1", compat).hash_with_attempt_cip22
     else:
         hash_one = TryAndIncrement(hasher, "g1", compat).hash_with_attempt
-    return {
-        int(i): hash_one(domain, messages[i], extra_data_of(extra_data, i))[0]
-        for i in np.nonzero(~has)[0]
-    }
-
-
-def _hash_batch(hasher, domain, messages, extra_data, compat, num_counters,
-                crh_u8, device):
-    out_jac, has = hash_to_g1_device(
-        domain, messages, extra_data, compat, num_counters, crh_u8, device
-    )
-    pts = dc.g1_unpack(out_jac)
-    for i, pt in host_fallback(hasher, domain, messages, extra_data, has,
-                               compat).items():
-        pts[i] = pt
-    return pts
+    pts = [hash_one(domain, messages[i], extra_data_of(extra_data, i))[0] for i in lanes]
+    idx = torch.from_numpy(lanes).to(device)
+    jac = tree_map(lambda full, part: full.index_copy(-1, idx, part), jac,
+                   dc.g1_pack(pts, device))
+    return jac, lanes.tolist()
 
 
 def hash_to_g1_direct_cip22_batch(domain: bytes, messages, extra_data=b"",
@@ -557,16 +528,14 @@ def hash_to_g1_direct_cip22_batch(domain: bytes, messages, extra_data=b"",
                                   device="cuda"):
     """Batched CIP22 try-and-increment over the DirectHasher on `device`.
     messages: equal-length byte strings. Returns a list of host affine G1
-    points (the rare no-counter-found lanes fall back to the host path:
-    the same semantics, probability ~0.58^num_counters a message).
+    points (the rare lanes the card leaves go to the host fallback of
+    hash_messages_device: the same semantics).
 
     Reference semantics: TryAndIncrementCIP22(DirectHasher).hash
     (try_and_increment_cip22.rs:81-134, direct.rs:23-79)."""
-    from ..hashers.direct import DirectHasher
-
-    device = require_device(device)
-    return _hash_batch(DirectHasher(), domain, messages, extra_data, compat,
-                       num_counters, None, device)
+    jac, _ = hash_messages_device(domain, messages, extra_data, False, num_counters,
+                                  compat, device)
+    return dc.g1_unpack(jac)
 
 
 def hash_to_g1_composite_cip22_batch(domain: bytes, messages, extra_data=b"",
@@ -579,12 +548,9 @@ def hash_to_g1_composite_cip22_batch(domain: bytes, messages, extra_data=b"",
 
     Reference semantics: TryAndIncrementCIP22(CompositeHasher).hash
     (try_and_increment_cip22.rs:81-134 with composite.rs:80-95)."""
-    from ..hashers.composite import composite_hasher
-
-    device = require_device(device)
-    crh_u8 = composite_crh_bytes(messages, device)
-    return _hash_batch(composite_hasher(), domain, messages, extra_data,
-                       compat, num_counters, crh_u8, device)
+    jac, _ = hash_messages_device(domain, messages, extra_data, True, num_counters,
+                                  compat, device)
+    return dc.g1_unpack(jac)
 
 
 def composite_crh_bytes(messages, device) -> np.ndarray:

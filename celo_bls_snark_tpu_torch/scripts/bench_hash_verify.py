@@ -16,17 +16,18 @@ Inputs, as the JAX bench's: `BENCH_HASH_MESSAGES` (16,384) messages
 b"block payload %08d", one committee of `BENCH_VALIDATORS` (100)
 validators from XorShiftRng(b"hashbench-seed01"), num_counters = 24,
 compat mode. The signatures are (sum sk) H(m_i) with H(m_i) from the
-card's own hash (hash_messages_device); the JAX bench multiplies host
-hashes, which are the same points when the card's hashes are right
-(chip_smoke.py holds a sample of them and every round-2 lane against the
-host oracle).
+card's own hash (ops/hash_to_g1.py::hash_messages_device); the JAX bench
+multiplies host hashes, which are the same points when the card's hashes
+are right (chip_smoke.py holds a sample of them and every round-2 lane
+against the host oracle).
 
     python -m celo_bls_snark_tpu_torch.scripts.bench_hash_verify
 
 prints one JSON line per hasher, DirectHasher then composite: the metric
 under the JAX bench's name, seconds per verification and their split into
-the stages h2g.crh, h2g.round1, h2g.round2 and bls.pairing, the count of
-lanes hashed by the host fallback, and the composite CRH table's set-up.
+the stages h2g.message_crh, h2g.pack, h2g.round1, h2g.round2 and
+bls.pairing, the count of lanes hashed by the host fallback, and the
+composite CRH table's set-up.
 """
 
 import json
@@ -40,12 +41,13 @@ from ..hostmath.params import R
 from ..keys import SIG_DOMAIN, PrivateKey, PublicKey
 from ..ops import bls as dbls
 from ..ops import curve as dc
+from ..ops.hash_to_g1 import hash_messages_device
 from ..utils import profiling
 from ..utils.rngs import XorShiftRng
 
 METRIC = "bls12377_verifications_per_s_hashing_included"
 NUM_COUNTERS = 24
-STAGES = ("h2g.crh", "h2g.round1", "h2g.round2", "bls.pairing")
+STAGES = ("h2g.message_crh", "h2g.pack", "h2g.round1", "h2g.round2", "bls.pairing")
 
 
 def committee(n_validators):
@@ -64,7 +66,7 @@ def messages(n_messages):
 def signatures(sk_sum, msgs, composite, device):
     """sig_i = (sum sk) H(m_i) on `device`, with the hashes of the path
     itself. Returns (sigs_jac, hashes_jac, fallback lanes)."""
-    hashes, fallback = dbls.hash_messages_device(
+    hashes, fallback = hash_messages_device(
         SIG_DOMAIN, msgs, b"", composite, NUM_COUNTERS, True, device)
     return dc.g1.scalar_mul_const(sk_sum, hashes), hashes, fallback
 

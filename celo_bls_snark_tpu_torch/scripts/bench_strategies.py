@@ -59,7 +59,7 @@ from ..ops import bls as dbls
 from ..ops import curve as dc
 from ..ops import msm as dmsm
 from ..ops import pairing as dp
-from ..ops.hash_to_g1 import composite_crh_bytes, hash_to_g1_device
+from ..ops.hash_to_g1 import hash_messages_device
 from ..utils import aotcache
 from ..utils.devices import require_device
 from ..utils.profiling import device_span
@@ -147,13 +147,8 @@ def make_hasher(inp):
     msgs, extras, V, device = inp["msgs"], inp["extras"], inp["V"], inp["device"]
 
     def hash_blocks():
-        crh_u8 = composite_crh_bytes(msgs, device)
-        jac, has = hash_to_g1_device(SIG_DOMAIN, msgs, extras, compat=True,
-                                     num_counters=NUM_COUNTERS, crh_u8=crh_u8,
-                                     device=device)
-        if not has.all():
-            raise RuntimeError("fallback lane in the strategies bench")
-        return jac
+        return hash_messages_device(SIG_DOMAIN, msgs, extras, composite=True,
+                                    num_counters=NUM_COUNTERS, device=device)[0]
 
     to_aff = aotcache.jit("strategies_to_aff_g1", dc.g1.to_affine)
     rep = aotcache.jit(f"strategies_rep_{V}", lambda t: tree_map(

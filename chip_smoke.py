@@ -954,7 +954,7 @@ def phase_strict_verify(n_epochs=300, n_validators=20, c=4, seed=20261018):
     setup_s = time.perf_counter() - t0
 
     def strict(sigs):
-        hashes, fallback = bench.dbls.hash_messages_device(
+        hashes, fallback = hash_to_g1.hash_messages_device(
             SIG_DOMAIN, msgs, extras, composite=True, num_counters=24, device=DEV)
         h_aff = dc.g1.to_affine(hashes)
         out = bench.dbls.strict_batch_verify_device(digits, sigs, pk_jac, h_aff, G, c)

@@ -132,7 +132,7 @@ def _hash(monkeypatch):
 def _hash_direct(monkeypatch):
     # first valid counters before CIP22: 2 and 0; round 1 over counter 0,
     # round 2 over counters 1 and 2
-    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 1)
     msgs = [b"direct msg 006", b"direct msg 007"]
     jac, has = th.hash_to_g1_device(SIG_DOMAIN, msgs, b"", num_counters=3, device="cpu",
                                     cip22=False)
@@ -178,7 +178,7 @@ PROGRAMS = {
     "fixed_base": (lambda mp: _fixed_base(), {"fb_g1", "aff1_t_aot_fb", "aff2_t_aot_fb"}),
     "h_poly": (lambda mp: _h_poly(), {"hp_bls12_377"}),
     "hash_to_g1": (_hash, {"h2g_crh_9_" + SIG_DOMAIN.hex(),
-                           "h2g_round_33_" + SIG_DOMAIN.hex() + "_1_5_2"}),
+                           "h2g_round_cip22_33_" + SIG_DOMAIN.hex() + "_1_0_5_2"}),
     "hash_to_g1_direct": (_hash_direct, {"h2g_round_direct_15_" + SIG_DOMAIN.hex() + "_1_0_1_2",
                                          "h2g_round_direct_15_" + SIG_DOMAIN.hex() + "_1_1_2_1",
                                          "h2g_merge_1"}),

@@ -3,7 +3,7 @@
 nodes hash committed seals) against the host TryAndIncrement over the
 DirectHasher and the benchmark's own reference: equal points, round 2 and
 the host fallback included; the grouped check over it; and the CIP22 path
-beside it, its points and graph tags as they were."""
+through the same round, its points and graph tags."""
 
 import numpy as np
 import pytest
@@ -44,27 +44,35 @@ def direct_hashes():
     """The hashes of MSGS through hash_messages_device (round 1 over counter
     0), as host points, and the lanes the host fallback hashed."""
     mp = pytest.MonkeyPatch()
-    mp.setenv("CELO_H2G_ROUND1", "1")
+    mp.setattr(th, "ROUND1_COUNTERS", 1)
     try:
-        jac, fallback = tbls.hash_messages_device(SIG_DOMAIN, MSGS, b"", num_counters=COUNTERS,
-                                                  device="cpu", cip22=False)
+        jac, fallback = th.hash_messages_device(SIG_DOMAIN, MSGS, b"", num_counters=COUNTERS,
+                                                device="cpu", cip22=False)
     finally:
         mp.undo()
     return tdc.g1_unpack(jac), fallback
 
 
-def test_lane_words_are_counter_extra_message():
-    """Lane c * m + i of a round is c_lo + c || extra_data_i || message_i,
-    word for word as the host packs it, per-message extra data included."""
+@pytest.mark.parametrize("cip22", (False, True), ids=["direct", "cip22"])
+def test_lane_words_are_counter_extra_message(cip22):
+    """Lane c * m + i of a round is c_lo + c || extra_data_i || row_i,
+    word for word as the host packs it, per-message extra data included.
+    Row i is message i before CIP22, and under CIP22 its CRH digest, made
+    and left on the device."""
     msgs = [b"m%02d" % i + bytes(range(60)) for i in range(5)]
     extras = [b"e%d" % i for i in range(5)]
-    ed = th.extra_data_rows(extras, 5)
-    words, msg_len = th.lane_message_words(msgs, ed, "cpu")
-    assert msg_len == 1 + 2 + 63 and words.shape == (32, 5)
+    if cip22:
+        rows = th._message_crh_rows(SIG_DOMAIN, msgs, "cpu")
+        want_rows = [DirectHasher().crh(SIG_DOMAIN, m, th.HASH_BYTES) for m in msgs]
+    else:
+        rows = want_rows = msgs
+    words, msg_len = th.lane_message_words(rows, th.extra_data_rows(extras, 5), "cpu")
+    assert msg_len == 1 + 2 + len(want_rows[0])
+    assert words.shape == ((16 if cip22 else 32), 5)
     c_lo, nc = 7, 3
     got = th._lane_words(words, c_lo, nc).numpy()
-    want = db.pack_messages([bytes([c_lo + c]) + e + m for c in range(nc)
-                             for m, e in zip(msgs, extras)])
+    want = db.pack_messages([bytes([c_lo + c]) + e + r for c in range(nc)
+                             for r, e in zip(want_rows, extras)])
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
@@ -85,35 +93,42 @@ def test_direct_hash_equals_the_benchmark_reference(direct_hashes):
                    for m in MSGS]
 
 
-def test_a_candidate_of_cofactor_order_goes_to_the_host(monkeypatch):
+@pytest.mark.parametrize("cip22", (False, True), ids=["direct", "cip22"])
+def test_a_candidate_of_cofactor_order_goes_to_the_host(cip22, monkeypatch):
     """A first valid candidate whose cofactor multiple is infinity (here
     x = 0, a point of order 3, put in counter 0 of message 0 on the card and
-    on the host alike) is skipped by the host path: the card hands the
-    message to the host, which moves on to the next counter."""
-    real_lane_hash, real_host_hash = db._direct_hash_words, DirectHasher.hash
-    words0, _ = th.lane_message_words(MSGS[1:2], th.extra_data_rows(b"", 1), "cpu")
-    first = words0[:, 0]
+    on the host alike) is skipped by the host path, before CIP22 and under
+    it: the card hands the message to the host, which moves on to the next
+    counter."""
+    msgs = MSGS[1:4]
+    # the lane hash that gives counter 0 of message 0, on the card and the host
+    card_fn, host_fn = ("blake2xs_batch", "xof") if cip22 else ("_direct_hash_words", "hash")
+    real_lane_hash, real_host_hash = getattr(db, card_fn), getattr(DirectHasher, host_fn)
+    row = DirectHasher().crh(SIG_DOMAIN, msgs[0], th.HASH_BYTES) if cip22 else msgs[0]
+    first = th.lane_message_words([row], th.extra_data_rows(b"", 1), "cpu")[0][:, 0]
 
-    def lane_hash(lanes, *args):
-        out = real_lane_hash(lanes, *args)
+    def lane_hash(lanes, *args, **kw):
+        out = real_lane_hash(lanes, *args, **kw)
         if torch.equal(lanes[:, 0], first):
             out = out.clone()
             out[..., 0] = 0
         return out
 
     def host_hash(self, domain, message, n):
-        if message == b"\x00" + MSGS[1]:
+        if message == b"\x00" + row:
             return bytes(n)
         return real_host_hash(self, domain, message, n)
 
-    monkeypatch.setattr(db, "_direct_hash_words", lane_hash)
-    monkeypatch.setattr(DirectHasher, "hash", host_hash)
-    monkeypatch.setenv("CELO_H2G_ROUND1", "2")
-    msgs = MSGS[1:4]
-    want = host_direct(msgs)
-    assert want[0][1] > 0 and hc.G1.scale_by_cofactor((0, 1)) is None
-    hashes, fallback = tbls.hash_messages_device(SIG_DOMAIN, msgs, b"", num_counters=2,
-                                                 device="cpu", cip22=False)
+    monkeypatch.setattr(db, card_fn, lane_hash)
+    monkeypatch.setattr(DirectHasher, host_fn, host_hash)
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 2)
+    h2c = (TryAndIncrementCIP22(DirectHasher(), "g1", True).hash_with_attempt_cip22 if cip22
+           else TryAndIncrement(DirectHasher(), "g1", True).hash_with_attempt)
+    want = [h2c(SIG_DOMAIN, m, b"") for m in msgs]
+    assert want[0][1] > 0 and max(c for _, c in want[1:]) < 2
+    assert hc.G1.scale_by_cofactor((0, 1)) is None
+    hashes, fallback = th.hash_messages_device(SIG_DOMAIN, msgs, b"", num_counters=2,
+                                               device="cpu", cip22=cip22)
     assert fallback == [0] and tdc.g1_unpack(hashes) == [pt for pt, _ in want]
 
 
@@ -133,10 +148,11 @@ def test_batch_verify_messages_before_cip22(forged):
     assert bool(ok[0]) is not forged
 
 
-def test_cip22_path_points_and_graph_tags_unchanged(monkeypatch):
-    """cip22=True (the default) hashes as before: the host CIP22 points, its
-    graphs under the tags h2g_crh, h2g_round and h2g_merge as they were, no
-    pre-CIP22 graph, and the round-2 lanes counted."""
+def test_cip22_path_points_and_graph_tags(monkeypatch):
+    """cip22=True (the default) gives the host CIP22 points through the one
+    round: its graphs are h2g_crh, the rounds under h2g_round_cip22 (of the
+    same scheme as the rounds before CIP22) and h2g_merge, and the round-2
+    lanes are counted."""
     tags = []
     real_jit = aotcache.jit
 
@@ -145,7 +161,7 @@ def test_cip22_path_points_and_graph_tags_unchanged(monkeypatch):
         return real_jit(tag, fn, *owners)
 
     monkeypatch.setattr(aotcache, "jit", recording)
-    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 1)
     # first valid CIP22 counters 2 and 1: both messages take round 2
     msgs = [b"direct msg 005", b"direct msg 006"]
     profiling.reset()
@@ -155,8 +171,8 @@ def test_cip22_path_points_and_graph_tags_unchanged(monkeypatch):
     assert [c for _, c in want] == [2, 1] and has.all()
     assert tdc.g1_unpack(jac) == [pt for pt, _ in want]
     dom = SIG_DOMAIN.hex()
-    assert tags == [f"h2g_crh_{len(msgs[0])}_{dom}", f"h2g_round_33_{dom}_1_1_2",
-                    f"h2g_round_33_{dom}_1_2_2", "h2g_merge_2"]
+    assert tags == [f"h2g_crh_{len(msgs[0])}_{dom}", f"h2g_round_cip22_33_{dom}_1_0_1_2",
+                    f"h2g_round_cip22_33_{dom}_1_1_2_2", "h2g_merge_2"]
     # one chunk of cap 2 over counters 1 and 2
     assert profiling.report()[th.ROUND2_LANES] == {"calls": 1, "total_s": 4.0}
 
@@ -182,7 +198,7 @@ def test_the_cells_hashes_on_the_card_equal_the_reference():
     equal, fallback = 0, []
     for s in range(S):
         msgs = [work.message(config, i) for i in range(s * M, (s + 1) * M)]
-        jac, host = tbls.hash_messages_device(
+        jac, host = th.hash_messages_device(
             config["domain"].encode(), msgs, work.extra(config, 0),
             num_counters=cell["params"]["num_counters"], compat=config["compat"],
             device="cuda", cip22=config["cip22"])

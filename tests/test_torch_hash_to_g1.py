@@ -13,6 +13,7 @@ from celo_bls_snark_tpu.ops import curve as jdc
 from celo_bls_snark_tpu.ops import hash_to_g1 as jh
 from celo_bls_snark_tpu.ops.field import FQ as JFQ
 from celo_bls_snark_tpu_torch.convert import tree_to_numpy
+from celo_bls_snark_tpu_torch.hash_to_curve.try_and_increment import TryAndIncrement
 from celo_bls_snark_tpu_torch.hash_to_curve.try_and_increment_cip22 import (
     TryAndIncrementCIP22,
 )
@@ -22,6 +23,7 @@ from celo_bls_snark_tpu_torch.keys import SIG_DOMAIN
 from celo_bls_snark_tpu_torch.ops import curve as tdc
 from celo_bls_snark_tpu_torch.ops import field as tf
 from celo_bls_snark_tpu_torch.ops import hash_to_g1 as th
+from celo_bls_snark_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)
 
@@ -119,24 +121,29 @@ def test_fallback_at_one_counter():
     assert got == host(DirectHasher(), True, MSGS, EXTRA)
 
 
-def test_round2_merge_in_two_chunks(monkeypatch):
-    """Round 1 over counter 0 alone leaves 35 of 64 messages pending, above
-    the cap of 32: round 2 runs in two chunks, the second padded with
-    duplicate lanes, and three messages (first valid counter 8, 10, 16)
-    reach the host fallback."""
-    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+@pytest.mark.parametrize("cip22", (True, False), ids=["cip22", "direct"])
+def test_round2_merge_in_two_chunks(cip22, monkeypatch):
+    """Round 1 over counter 0 alone leaves 35 (CIP22) or 40 (before CIP22)
+    of 64 messages pending, above the cap of 32: round 2 indexes them on
+    the card in two chunks over counters 1-4, the second padded with
+    duplicate lanes, and the messages whose first valid counter is past 4
+    (7 and 3) are hashed on the host and merged on the card."""
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 1)
     msgs = [b"h2g msg %03d" % i for i in range(64)]
-    want = host(DirectHasher(), True, msgs, b"", with_attempt=True)
+    if cip22:
+        want = host(DirectHasher(), True, msgs, b"", with_attempt=True)
+    else:
+        h2c = TryAndIncrement(DirectHasher(), "g1", True)
+        want = [h2c.hash_with_attempt(SIG_DOMAIN, m, b"") for m in msgs]
     attempts = np.array([a for _, a in want])
-    assert (attempts >= 1).sum() == 35 and (attempts >= 8).sum() == 3
-    jac, has = th.hash_to_g1_device(SIG_DOMAIN, msgs, b"", num_counters=8,
-                                    device="cpu")
-    np.testing.assert_array_equal(has, attempts < 8)
-    got = tdc.g1_unpack(jac)
-    for i in np.nonzero(has)[0]:
-        assert got[i] == want[i][0]
-    assert th.hash_to_g1_direct_cip22_batch(
-        SIG_DOMAIN, msgs, b"", num_counters=8, device="cpu") == [pt for pt, _ in want]
+    pending, late = (35, 7) if cip22 else (40, 3)
+    assert (attempts >= 1).sum() == pending and (attempts >= 5).sum() == late
+    profiling.reset()
+    jac, fallback = th.hash_messages_device(SIG_DOMAIN, msgs, b"", num_counters=5,
+                                            device="cpu", cip22=cip22)
+    assert fallback == np.nonzero(attempts >= 5)[0].tolist()
+    assert profiling.report()[th.ROUND2_LANES] == {"calls": 1, "total_s": 2 * 32 * 4.0}
+    assert tdc.g1_unpack(jac) == [pt for pt, _ in want]
 
 
 def test_per_message_extra_data():

@@ -190,7 +190,8 @@ def test_span_names_on_the_benchmark_paths_leave_its_own_spans_alone(monkeypatch
     apk = tuple(tuple(x[:, :1] for x in c) for c in apks)
     assert bool(dbls.batch_verify_grouped_aot(sigs, dc.g1.from_affine(hashes), apk, 1)[0])
 
-    assert {"h2g.crh.plan", "h2g.crh.digest", "h2g.round1", "gpu.h2g.round",
+    assert {"h2g.message_crh", "h2g.crh.plan", "h2g.crh.digest", "h2g.pack", "h2g.round1",
+            "gpu.h2g.round", "gpu.h2g.lane_hash",
             "gpu.verify.legs", "gpu.pairing.miller", "gpu.pairing.final_exp"} <= names
     # aotcache's own names are recorded on the card only
     assert not (names | {"aot.launch", "gpu.graph"}) & BENCHMARK_SPANS
@@ -224,7 +225,7 @@ def test_pre_cip22_call_records_its_pack_stage_and_round2_lanes(monkeypatch):
             yield
 
     monkeypatch.setattr(th, "device_span", recording)
-    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 1)
     rep = _pre_cip22_call("cpu")
     assert names == ["gpu.h2g.round", "gpu.h2g.lane_hash"] * 2
     assert {"h2g.pack", "h2g.round1", "h2g.round2"} <= set(rep)
@@ -242,7 +243,7 @@ def test_pre_cip22_lane_hash_span_on_the_card(monkeypatch):
     needs_card()
     from celo_bls_snark_tpu_torch.ops import hash_to_g1 as th
 
-    monkeypatch.setenv("CELO_H2G_ROUND1", "1")
+    monkeypatch.setattr(th, "ROUND1_COUNTERS", 1)
     for _ in range(2):  # eager, then the captures
         _pre_cip22_call("cuda")
     rep = _pre_cip22_call("cuda")
