@@ -3,14 +3,16 @@ celo_bls_snark_tpu_torch/ops/bls.py::batch_verify_messages_device, against
 the JAX package's on the same inputs: equal verdicts for the DirectHasher
 and the composite CRH, honest and tampered.
 
-(Apart from tests/test_torch_hash_to_g1.py and
-tests/test_torch_strict_verify.py so that each file runs in a few minutes
-alone: the JAX package compiles its hash rounds and pairing on the CPU.)"""
+The JAX package's verdicts are recorded by tests/jax_answers.py: it
+compiles its hash rounds and pairing on the CPU for minutes."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.ops import bls as jbls
 from celo_bls_snark_tpu.ops import curve as jdc
 from celo_bls_snark_tpu_torch.hash_to_curve.try_and_increment_cip22 import (
@@ -32,29 +34,51 @@ torch.set_num_threads(1)
 MSGS = [b"verify msg %03d" % i for i in range(8)]
 
 
-@pytest.fixture(scope="module")
-def committee():
+@functools.cache
+def _committee():
     rng = XorShiftRng(b"devmsgverify0001")
     sks = [PrivateKey.generate(rng) for _ in range(3)]
     apk = PublicKey.aggregate([sk.to_public() for sk in sks])
     return sum(sk.sk for sk in sks) % R, apk.pt
 
 
-@pytest.mark.parametrize("composite", (False, True))
-def test_batch_verify_messages_equals_jax(committee, composite):
-    sk_sum, apk = committee
+@pytest.fixture(scope="module")
+def committee():
+    return _committee()
+
+
+def messages_inputs(composite):
+    """(honest lanes, tampered lanes), aggregate key, messages, hasher."""
+    sk_sum, apk = _committee()
     h2c = composite_hash_to_g1_cip22() if composite else \
         TryAndIncrementCIP22(DirectHasher(), "g1", True)
     sigs = [hc.G1.mul(sk_sum, h2c.hash(SIG_DOMAIN, m, b"")) for m in MSGS]
-    tampered = [sigs[1]] + sigs[1:]
-    for lanes, want in ((sigs, True), (tampered, False)):
-        got = tbls.batch_verify_messages_device(
-            tdc.g1_pack(lanes, "cpu"), tbls.pack_g2_affine([apk], "cpu"),
-            SIG_DOMAIN, MSGS, b"", composite=composite)
-        jgot = jbls.batch_verify_messages_device(
-            jdc.g1_pack(lanes), jbls.pack_g2_affine([apk]), SIG_DOMAIN, MSGS,
-            b"", composite=composite)
-        assert bool(got[0]) is bool(np.asarray(jgot)[0]) is want
+    return (sigs, [sigs[1]] + sigs[1:]), apk, MSGS, composite
+
+
+def messages_jax(inputs):
+    lanes, apk, msgs, composite = inputs
+    return {"ok": [np.array([bool(np.asarray(jbls.batch_verify_messages_device(
+        jdc.g1_pack(x), jbls.pack_g2_affine([apk]), SIG_DOMAIN, msgs, b"",
+        composite=composite))[0]) for x in lanes])]}
+
+
+# the JAX package's verdicts, recorded (tests/jax_answers.py): it compiles
+# its hash rounds and pairing on the CPU for 100-230 s a hasher
+REC = jax_answers.Recordings(__name__, {
+    "direct": (functools.partial(messages_inputs, False), messages_jax),
+    "composite": (functools.partial(messages_inputs, True), messages_jax)})
+
+
+@pytest.mark.parametrize("composite", (False, True))
+def test_batch_verify_messages_equals_jax(composite):
+    inputs = messages_inputs(composite)
+    lanes, apk, msgs, _ = inputs
+    want = REC.load("composite" if composite else "direct", inputs)["ok"][0].tolist()
+    got = [bool(tbls.batch_verify_messages_device(
+        tdc.g1_pack(x, "cpu"), tbls.pack_g2_affine([apk], "cpu"),
+        SIG_DOMAIN, msgs, b"", composite=composite)[0]) for x in lanes]
+    assert got == want == [True, False]
 
 
 def test_batch_verify_messages_host_fallback(committee):

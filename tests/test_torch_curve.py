@@ -4,6 +4,7 @@ ops/curve.py on the CPU, on the same packed points, and against the
 hostmath curve oracles; PointVec and the device batch inversion
 (make_affine_raw) leaf for leaf."""
 
+import functools
 import random
 
 import jax
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.hostmath import bw6 as hbw6
 from celo_bls_snark_tpu.hostmath import curves as hc
 from celo_bls_snark_tpu.hostmath import fp2 as hfp2
@@ -144,8 +146,8 @@ BW6 = {
 }
 
 
-@pytest.fixture(scope="module")
-def bw6_points():
+@functools.cache
+def _bw6_points():
     rng = random.Random(20261017)
     out = {}
     for name, (_, _, host, gen) in BW6.items():
@@ -154,34 +156,61 @@ def bw6_points():
     return out
 
 
+def bw6_add_double_inputs(name):
+    pts = _bw6_points()[name]
+    return name, pts, pts[1:] + pts[:1]  # P + Q, P + infinity, infinity + P, P + P
+
+
+def bw6_add_double_jax(inputs):
+    name, pts, other = inputs
+    jops = BW6[name][0]
+    s = jops.add(jdc.pack_jac(jf.FQ761, pts), jdc.pack_jac(jf.FQ761, other))
+    leaves = lambda x: tree_leaves(jax.tree.map(np.asarray, x))  # noqa: E731
+    return {"add": leaves(s), "double": leaves(jops.double(s))}
+
+
 @pytest.mark.parametrize("name", ["bw6_g1", "bw6_g2"])
-def test_bw6_add_double_limb_exact(bw6_points, name):
-    jops, tops, host, _ = BW6[name]
-    pts = bw6_points[name]
-    other = pts[1:] + pts[:1]  # P + Q, P + infinity, infinity + P, P + P
+def test_bw6_add_double_limb_exact(name):
+    _, tops, host, _ = BW6[name]
+    inputs = bw6_add_double_inputs(name)
+    _, pts, other = inputs
+    want = REC.load(name + "_add_double", inputs)
     a, b = jdc.pack_jac(jf.FQ761, pts), jdc.pack_jac(jf.FQ761, other)
     assert_same(a, tdc.pack_jac(tf.FQ761, pts, "cpu"))
     ta, tb = tree_from_numpy(a, "cpu"), tree_from_numpy(b, "cpu")
     s = tops.add(ta, tb)
-    assert_same(jops.add(a, b), s)
+    assert_same(want["add"], s)
     assert tdc.unpack_jac(tf.FQ761, s) == [host.add(x, y) for x, y in zip(pts, other)]
-    d = tops.double(s)
-    assert_same(jops.double(tree_to_numpy(s)), d)
+    d = tops.double(s)  # the JAX package's double of its own sum, equal to s
+    assert_same(want["double"], d)
     assert tdc.unpack_jac(tf.FQ761, d) == [
         host.double(host.add(x, y)) for x, y in zip(pts, other)]
 
 
+def bw6_madd_inputs(name, canonical):
+    pts = _bw6_points()[name]
+    return name, pts, pts[2:] + pts[:2], canonical
+
+
+def bw6_madd_jax(inputs):
+    name, pts, other, canonical = inputs
+    p1, a2 = jdc.pack_jac(jf.FQ761, pts), jdc.pack_affine(jf.FQ761, other)
+    out = BW6[name][0].madd(p1, a2, canonical_bases=canonical)
+    return {"madd": tree_leaves(jax.tree.map(np.asarray, out))}
+
+
 @pytest.mark.parametrize("canonical", [False, True])
 @pytest.mark.parametrize("name", ["bw6_g1", "bw6_g2"])
-def test_bw6_madd_limb_exact(bw6_points, name, canonical):
-    jops, tops, host, _ = BW6[name]
-    pts = bw6_points[name]
-    other = pts[2:] + pts[:2]
+def test_bw6_madd_limb_exact(name, canonical):
+    _, tops, host, _ = BW6[name]
+    inputs = bw6_madd_inputs(name, canonical)
+    _, pts, other, _ = inputs
+    want = REC.load(f"{name}_madd_{'canonical' if canonical else 'lazy'}", inputs)
     p1, a2 = jdc.pack_jac(jf.FQ761, pts), jdc.pack_affine(jf.FQ761, other)
     assert_same(a2, tdc.pack_affine(tf.FQ761, other, "cpu"))
     got = tops.madd(tree_from_numpy(p1, "cpu"), tree_from_numpy(a2, "cpu"),
                     canonical_bases=canonical)
-    assert_same(jops.madd(p1, a2, canonical_bases=canonical), got)
+    assert_same(want["madd"], got)
     assert tdc.unpack_jac(tf.FQ761, got) == [host.add(x, y) for x, y in zip(pts, other)]
 
 
@@ -198,26 +227,55 @@ RAW_CASES = {
 }
 
 
+def affine_raw_inputs(name):
+    _, _, _, _, host, gen, *_ = RAW_CASES[name]
+    rng = random.Random(20261018)
+    pts = [host.mul(rng.randrange(1, R), gen) for _ in range(4)]
+    return name, pts[:2] + [None] + pts[2:]
+
+
+def affine_raw_jax(inputs):
+    name, pts = inputs
+    jops, _, jfo, _, _, _, template, host_inv, pack = RAW_CASES[name]
+    # non-trivial Z: double every lane first
+    want = jdc.make_affine_raw(jops, jfo, host_inv, template, f"t_{name}")(
+        jops.double(pack(pts)))
+    return {"raw": [np.asarray(w) for w in want.leaves],
+            "mont": tree_leaves(jax.tree.map(np.asarray, want.device_montgomery(8)))}
+
+
+# the JAX package's limbs, recorded (tests/jax_answers.py) where they compile
+# for over 30 s on the CPU: the BW6 add and double (about 35 s for both
+# groups), the BW6 madd (one compile for its four cases, 25-45 s) and the
+# BLS G2 device batch inversion (about 40 s); the other inversions, 15-30 s,
+# stay live
+REC = jax_answers.Recordings(__name__, {
+    **{f"{n}_add_double": (functools.partial(bw6_add_double_inputs, n), bw6_add_double_jax)
+       for n in BW6},
+    **{f"{n}_madd_{'canonical' if c else 'lazy'}":
+       (functools.partial(bw6_madd_inputs, n, c), bw6_madd_jax)
+       for n in BW6 for c in (False, True)},
+    "affine_raw_bls-g2": (functools.partial(affine_raw_inputs, "bls-g2"), affine_raw_jax)})
+
+
 @pytest.mark.parametrize("name", list(RAW_CASES))
 def test_affine_raw_and_pointvec_leaves_match_jax(name):
     """Device batch inversion -> PointVec: the raw uint16 leaves equal the
     JAX package's, the points equal the host's (infinity lanes included),
     and device_montgomery (padded) gives the JAX package's limbs."""
-    jops, tops, jfo, tfo, host, gen, template, host_inv, pack = RAW_CASES[name]
-    rng = random.Random(20261018)
-    pts = [host.mul(rng.randrange(1, R), gen) for _ in range(4)]
-    pts = pts[:2] + [None] + pts[2:]
-    proj = pack(pts)
+    _, tops, _, tfo, host, _, template, host_inv, pack = RAW_CASES[name]
+    inputs = affine_raw_inputs(name)
+    _, pts = inputs
+    want = REC.answers(f"affine_raw_{name}", inputs, affine_raw_jax)
     # non-trivial Z: double every lane first
-    jproj = jops.double(proj)
-    tproj = tops.double(tree_from_numpy(proj, "cpu"))
-    want = jdc.make_affine_raw(jops, jfo, host_inv, template, f"t_{name}")(jproj)
+    tproj = tops.double(tree_from_numpy(pack(pts), "cpu"))
     got = tdc.make_affine_raw(tops, tfo, host_inv, template)(tproj)
-    assert len(got.leaves) == len(want.leaves)
-    for g, w in zip(got.leaves, want.leaves):
+    assert len(got.leaves) == len(want["raw"])
+    for g, w in zip(got.leaves, want["raw"]):
         assert g.dtype == np.uint16
-        np.testing.assert_array_equal(g, np.asarray(w))
+        np.testing.assert_array_equal(g, w)
     doubled = [host.double(p) for p in pts]
     assert got == doubled and list(got) == doubled and got[2] is None
     assert len(got) == 5
-    assert_same(want.device_montgomery(8), got.device_montgomery("cpu", 8))
+    assert_same(want["mont"], got.device_montgomery("cpu", 8))
+

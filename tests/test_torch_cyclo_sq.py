@@ -10,6 +10,7 @@ squarings. The routing of ops/field.py's wrapper and the count of
 squarings in a final exponentiation are checked on CPU tensors; the kernel
 itself on the card is tests/test_torch_cyclo_sq_card.py."""
 
+import functools
 import random
 import shutil
 import subprocess
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.ops import tower as jtw
 from celo_bls_snark_tpu_torch.convert import tree_from_numpy, tree_to_numpy
 from celo_bls_snark_tpu_torch.ops import field as F
@@ -139,24 +141,40 @@ def operand_extremes(z):
     return limb, value
 
 
-@pytest.mark.parametrize("case", ["random", "edges", "chain64"])
-def test_kernel_body_limb_exact_on_host(host_body, case):
+def body_inputs(case):
     rng = random.Random(f"cyclo-{case}")
     z = {"random": lambda: random_input(rng, 8), "edges": lambda: edge_input(rng),
          "chain64": lambda: random_input(rng, 3)}[case]()
-    depth = 64 if case == "chain64" else 1
+    return z, 64 if case == "chain64" else 1
+
+
+def body_jax(inputs):
+    z, depth = inputs
+    ref = as_tree(z)
+    for _ in range(depth):
+        ref = jtw.f12_cyclo_sq(ref)
+    return {"out": [leaves_np(jax.tree.map(np.asarray, ref))]}
+
+
+# the JAX package's chain of 64 squarings, recorded (tests/jax_answers.py):
+# it takes 50-65 s on the CPU; one squaring, about 17 s, stays live
+REC = jax_answers.Recordings(__name__, {
+    "chain64": (functools.partial(body_inputs, "chain64"), body_jax)})
+
+
+@pytest.mark.parametrize("case", ["random", "edges", "chain64"])
+def test_kernel_body_limb_exact_on_host(host_body, case):
+    inputs = body_inputs(case)
+    z, depth = inputs
     if case == "edges":
         limb, value = operand_extremes(z)
         assert (1 << 25) < limb < (1 << 26) and 200 * P < value < 256 * P
     got = host_body(z, depth)
     plain = TT.f12_cyclo_sq_plain(tree_from_numpy(as_tree(z), "cpu"))
-    ref = as_tree(z)
     for _ in range(depth - 1):
         plain = TT.f12_cyclo_sq_plain(plain)
     np.testing.assert_array_equal(got, leaves_np(tree_to_numpy(plain)))
-    for _ in range(depth):
-        ref = jtw.f12_cyclo_sq(ref)
-    np.testing.assert_array_equal(got, leaves_np(jax.tree.map(np.asarray, ref)))
+    np.testing.assert_array_equal(got, REC.answers(case, inputs, body_jax)["out"][0])
 
 
 def test_wrapper_routes_cpu_to_the_composition():

@@ -27,6 +27,7 @@ arithmetic itself (csrc/field_common.cuh, which also compiles for the host)
 is run on the same inputs."""
 
 import ctypes
+import functools
 import random
 import shutil
 import subprocess
@@ -37,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.ops import field as jf
 from celo_bls_snark_tpu_torch.ops import field as tf
 from celo_bls_snark_tpu_torch.ops import kernels as tk
@@ -240,14 +242,36 @@ def test_mul_tc_plain_limb_exact_against_mul_conv(js, ts, jops, tops):
         np.testing.assert_array_equal(tops.mul(t(a), t(b)).numpy(), want)
 
 
-@pytest.mark.parametrize("js,ts,jops,tops", SPECS[:2])
-def test_mul_tc_plain_limb_exact_against_pallas_mxu_interpret(js, ts, jops, tops):
-    """The Pallas kernel takes blocks of 128 lanes: B = 128, lazy inputs
+PALLAS_MXU_SPECS = {"fq377": jf.FQ, "fr253": jf.FR}
+
+
+def pallas_mxu_inputs(name):
+    """B = 128 (the Pallas kernel takes blocks of 128 lanes), lazy inputs
     with the edge values 0, 1 and p-1 in the first lanes."""
     rng = random.Random(11)
-    a, b = lazy_inputs(js, rng, 128), lazy_inputs(js, rng, 128)
+    js = PALLAS_MXU_SPECS[name]
+    return name, lazy_inputs(js, rng, 128), lazy_inputs(js, rng, 128)
+
+
+def pallas_mxu_jax(inputs):
+    name, a, b = inputs
+    js = PALLAS_MXU_SPECS[name]
     pallas = jax.jit(jf._make_pallas_mul_mxu(js, interpret=True))
-    want = np.asarray(pallas(jnp.asarray(a), jnp.asarray(b)))
+    return {"out": [np.asarray(pallas(jnp.asarray(a), jnp.asarray(b)))]}
+
+
+# the Pallas kernel's interpreted output over Fq377, recorded
+# (tests/jax_answers.py): it compiles for about 45 s on the CPU; over Fr253,
+# about 12 s, it stays live
+REC = jax_answers.Recordings(__name__, {
+    "pallas_mxu_fq377": (functools.partial(pallas_mxu_inputs, "fq377"), pallas_mxu_jax)})
+
+
+@pytest.mark.parametrize("js,ts,jops,tops", SPECS[:2])
+def test_mul_tc_plain_limb_exact_against_pallas_mxu_interpret(js, ts, jops, tops):
+    inputs = pallas_mxu_inputs("fq377" if js is jf.FQ else "fr253")
+    _, a, b = inputs
+    want = REC.answers(f"pallas_mxu_{inputs[0]}", inputs, pallas_mxu_jax)["out"][0]
     np.testing.assert_array_equal(tf._mul_tc_plain(ts, t(a), t(b)).numpy(), want)
 
 

@@ -3,12 +3,15 @@ ops/hash_to_g1.py) against the JAX package's ops/hash_to_g1.py and the host
 TryAndIncrementCIP22: equal limbs for the candidate parse and the
 Tonelli-Shanks, equal affine points and masks for the whole hash."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.ops import curve as jdc
 from celo_bls_snark_tpu.ops import hash_to_g1 as jh
 from celo_bls_snark_tpu.ops.field import FQ as JFQ
@@ -71,19 +74,50 @@ def _jax_sqrt_stages(xof, compat):
     return x, greatest, valid, w, t, tt0, is_qr, y, jh._select_greatest(y, greatest)
 
 
+def sqrt_inputs():
+    return xof_words(12, 2), True
+
+
+def sqrt_jax(inputs):
+    words, compat = inputs
+    out = jax.jit(_jax_sqrt_stages, static_argnums=1)(jnp.asarray(words), compat)
+    return {"stages": [np.asarray(x) for x in out]}
+
+
+def device_inputs(compat):
+    return SIG_DOMAIN, MSGS, EXTRA, compat, 16
+
+
+def device_jax(inputs):
+    domain, msgs, extra, compat, num_counters = inputs
+    jac, has = jh.hash_to_g1_device(domain, msgs, extra, compat=compat,
+                                    num_counters=num_counters)
+    return {"jac": [np.asarray(x) for x in jac], "has": [np.asarray(has)]}
+
+
+# the JAX package's limbs, recorded (tests/jax_answers.py): its hash rounds
+# compile for 40-95 s a shape on the CPU
+REC = jax_answers.Recordings(__name__, {
+    "sqrt_stages": (sqrt_inputs, sqrt_jax),
+    "device_compat": (functools.partial(device_inputs, True), device_jax),
+    "device_noncompat": (functools.partial(device_inputs, False), device_jax)})
+
+
 def test_sqrt_and_tonelli_shanks_equal_jax():
     """Every candidate lane, valid or garbage, gives the same limbs in both
     packages; on the valid lanes the root squares to x^3 + 1."""
-    words = xof_words(12, 2)
-    want = jax.jit(_jax_sqrt_stages, static_argnums=1)(jnp.asarray(words), True)
+    inputs = sqrt_inputs()
+    words, compat = inputs
+    want = REC.load("sqrt_stages", inputs)["stages"]
     tw = torch.from_numpy(words.astype(np.int64))
-    x, greatest, valid, w, t = th._candidate_points(tw, True)
+    x, greatest, valid, w, t = th._candidate_points(tw, compat)
     _, tt0, is_qr = th._sqrt_prep(t)
     y = th._tonelli_shanks_finish(t, w)
     got = (x, greatest, valid, w, t, tt0, is_qr, y, th._select_greatest(y, greatest))
+    assert len(got) == len(want)
     for g, wnt in zip(got, want):
         np.testing.assert_array_equal(g.numpy().astype(np.int64),
-                                      np.asarray(wnt).astype(np.int64))
+                                      wnt.astype(np.int64))
     assert 0 < int(valid.sum()) < 12
     ys, ts = tf.FQ.unpack(y), tf.FQ.unpack(t)
     for lane in np.nonzero(valid.numpy())[0]:
@@ -102,14 +136,15 @@ def test_ts_tables_cached_per_device():
 def test_hash_to_g1_device_equals_jax_and_host(compat):
     want_pts = host(DirectHasher(), compat, MSGS, EXTRA, with_attempt=True)
     assert max(a for _, a in want_pts) >= 5  # counters > 0 and round 2
-    jjac, jhas = jh.hash_to_g1_device(SIG_DOMAIN, MSGS, EXTRA, compat=compat,
-                                      num_counters=16)
-    tjac, thas = th.hash_to_g1_device(SIG_DOMAIN, MSGS, EXTRA, compat=compat,
-                                      num_counters=16, device="cpu")
-    np.testing.assert_array_equal(thas, np.asarray(jhas))
+    inputs = device_inputs(compat)
+    want = REC.load("device_compat" if compat else "device_noncompat", inputs)
+    domain, msgs, extra, _, num_counters = inputs
+    tjac, thas = th.hash_to_g1_device(domain, msgs, extra, compat=compat,
+                                      num_counters=num_counters, device="cpu")
+    np.testing.assert_array_equal(thas, want["has"][0])
     assert thas.all()
     got = tdc.g1_unpack(tjac)
-    assert got == jdc.unpack_jac(jdc.g1, JFQ, jax.tree.map(np.asarray, jjac))
+    assert got == jdc.unpack_jac(jdc.g1, JFQ, tuple(want["jac"]))
     assert got == [pt for pt, _ in want_pts]
 
 

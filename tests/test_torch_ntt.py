@@ -6,6 +6,7 @@ The JAX package's large-N paths (four-step, gather) run only on its
 accelerator; on the CPU both sides run the radix-2 reshape butterfly, and
 the port runs it at every N. Integer work: the tolerance is 0."""
 
+import functools
 import random
 
 import jax.numpy as jnp
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.ops import field as jf
 from celo_bls_snark_tpu.ops import ntt as jntt
 from celo_bls_snark_tpu.snark import api as japi
@@ -50,39 +52,68 @@ def test_engines_and_roots_match():
             assert tn.root_fn(N) == jn.root_fn(N)
 
 
+COSET_CASES = [("bls_fr", 64), ("bw6_fr", 8), ("bw6_fr", 1024)]
+
+
+def ntt_inputs(field, N, coset):
+    eng = FIELDS[field][5]
+    return field, values(eng.fr, N, 100 + N if coset else N), coset
+
+
+def ntt_jax(inputs):
+    """The forward transform of the packed values and the inverse of its
+    output: (coset_)ntt, then (coset_)intt."""
+    field, vals, coset = inputs
+    jn, js, g = FIELDS[field][0], FIELDS[field][2], FIELDS[field][5].fr_generator
+    x = jnp.asarray(js.pack(vals))
+    fwd = jn.coset_ntt(x, g) if coset else jn.ntt(x)
+    back = jn.coset_intt(fwd, g) if coset else jn.ntt(fwd, inverse=True)
+    return {"fwd": [np.asarray(fwd)], "back": [np.asarray(back)]}
+
+
+# the JAX package's 1024-point transforms, recorded (tests/jax_answers.py):
+# they compile for 40-50 s a case on the CPU; the smaller ones, about 30 s
+# or less, stay live
+REC = jax_answers.Recordings(__name__, {
+    **{f"ntt_{f}_1024": (functools.partial(ntt_inputs, f, 1024, False), ntt_jax)
+       for f in ("bls_fr", "bw6_fr")},
+    "coset_bw6_fr_1024": (functools.partial(ntt_inputs, "bw6_fr", 1024, True), ntt_jax)})
+
+
 @pytest.mark.parametrize("field,N", CASES)
 def test_ntt_and_inverse_limb_exact(field, N):
-    jn, tn, js, ts, _, eng = FIELDS[field]
-    vals = values(eng.fr, N, N)
+    _, tn, js, ts, _, eng = FIELDS[field]
+    inputs = ntt_inputs(field, N, False)
+    vals = inputs[1]
+    want = REC.answers(f"ntt_{field}_{N}", inputs, ntt_jax)
     x = js.pack(vals)
-    want = np.asarray(jn.ntt(jnp.asarray(x)))
     got = tn.ntt(torch.from_numpy(x))
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want["fwd"][0])
     omega = tg16._root_of_unity(eng, N)
     assert ts.unpack(got) == tg16.fft(vals, omega, eng.fr)
+    # the JAX package's inverse of its own output, which equals got
     back = tn.ntt(got, inverse=True)
-    np.testing.assert_array_equal(
-        back.numpy(), np.asarray(jn.ntt(jnp.asarray(want), inverse=True)))
+    np.testing.assert_array_equal(back.numpy(), want["back"][0])
     assert ts.unpack(back) == vals
     assert ts.unpack(tn.ntt(torch.from_numpy(x), inverse=True)) == \
         tg16.ifft(vals, omega, eng.fr)
 
 
-@pytest.mark.parametrize("field,N", [("bls_fr", 64), ("bw6_fr", 8), ("bw6_fr", 1024)])
+@pytest.mark.parametrize("field,N", COSET_CASES)
 def test_coset_ntt_limb_exact(field, N):
-    jn, tn, js, ts, _, eng = FIELDS[field]
+    _, tn, js, ts, _, eng = FIELDS[field]
     r, g = eng.fr, eng.fr_generator
-    vals = values(r, N, 100 + N)
+    inputs = ntt_inputs(field, N, True)
+    vals = inputs[1]
+    want = REC.answers(f"coset_{field}_{N}", inputs, ntt_jax)
     x = js.pack(vals)
-    want = np.asarray(jn.coset_ntt(jnp.asarray(x), g))
     got = tn.coset_ntt(torch.from_numpy(x), g)
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want["fwd"][0])
     omega = tg16._root_of_unity(eng, N)
     scaled = [v * pow(g, i, r) % r for i, v in enumerate(vals)]
     assert ts.unpack(got) == tg16.fft(scaled, omega, r)
     back = tn.coset_intt(got, g)
-    np.testing.assert_array_equal(
-        back.numpy(), np.asarray(jn.coset_intt(jnp.asarray(want), g)))
+    np.testing.assert_array_equal(back.numpy(), want["back"][0])
     assert ts.unpack(back) == vals
 
 

@@ -5,10 +5,13 @@ runs in both packages on the same inputs: JAX on the CPU, where every
 multiply is the plain mul_conv, and the port with device="cpu", where every
 multiply is the plain version of its mont_mul kernel. The affine P legs,
 the Miller-loop output, the Fq12 product, the final-exponentiation output
-and the verdict must agree limb for limb. The second of these runs goes
-under tests/torch_capture_guard.py's guard: the body that
-batch_verify_grouped_aot captures on the card takes no host data and makes
-no host read once warm."""
+and the verdict must agree limb for limb; the JAX package's are recorded
+by tests/jax_answers.py, and a `slow` test re-derives them. The tampered
+two-group run goes under tests/torch_capture_guard.py's guard: the body
+that batch_verify_grouped_aot captures on the card takes no host data and
+makes no host read once warm."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +32,7 @@ from celo_bls_snark_tpu_torch.ops import bls as tbls
 from celo_bls_snark_tpu_torch.ops import curve as tdc
 from celo_bls_snark_tpu_torch.utils.tree import tree_leaves
 
+import jax_answers
 from torch_capture_guard import capture_guard
 
 STAGES = ("p_aff", "miller", "product", "final_exp", "ok")
@@ -63,14 +67,53 @@ def _jax_stages(sigs_jac, hashes_jac, apks_aff, groups):
     return p_aff, miller, product, final_exp, jtw.f12_is_one(final_exp)
 
 
+@functools.cache
+def _committee():
+    sk1, sk2 = 1234567, 7654321
+    pk1 = jhc.G2.mul(sk1, G2_GENERATOR)
+    pk2 = jhc.G2.mul(sk2, G2_GENERATOR)
+    hs = [jhc.G1.mul(3 + i, G1_GENERATOR) for i in range(8)]
+    sigs = [jhc.G1.mul(sk1, h) for h in hs[:4]] + [
+        jhc.G1.mul(sk2, h) for h in hs[4:]
+    ]
+    return sigs, hs, [pk1, pk2]
+
+
+def slice_inputs(case):
+    """(sigs, hashes, aggregate keys, groups) of each compared batch."""
+    sigs, hs, pks = _committee()
+    if case == "one_group":
+        return sigs[:4], hs[:4], pks[:1], 1
+    if case == "two_groups_tampered":
+        sigs = sigs[:3] + [jhc.G1.mul(999, hs[3])] + sigs[4:]
+    return sigs, hs, pks, 2
+
+
+def slice_jax(inputs):
+    sigs, hs, pks, groups = inputs
+    jax_fn = _jax_stages_2 if groups == 2 else _jax_stages_1
+    out = jax_fn(jdc.g1_pack(sigs), jdc.g1_pack(hs), jbls.pack_g2_affine(pks))
+    return {name: tree_leaves(jax.tree.map(np.asarray, x))
+            for name, x in zip(STAGES, out)}
+
+
+# the JAX package's stages, recorded (tests/jax_answers.py): each of
+# _jax_stages_1 and _jax_stages_2 compiles for about 2 min on the CPU
+REC = jax_answers.Recordings(__name__, {
+    case: (functools.partial(slice_inputs, case), slice_jax)
+    for case in ("two_groups", "two_groups_tampered", "one_group")})
+
 _WARM = []  # the shapes the port has run once in this process
 
 
-def _compare(jax_fn, sigs, hs, pks, groups, guard=False):
-    """Both packages on the same inputs; returns the (common) verdict. With
-    `guard`, the port's run is a warm one under the capture guard."""
+def _compare(case, guard=False):
+    """The port's stages against the JAX package's recorded ones on the
+    same inputs; returns the (common) verdict. With `guard`, the port's run
+    is a warm one under the capture guard."""
+    inputs = slice_inputs(case)
+    want = REC.load(case, inputs)
+    sigs, hs, pks, groups = inputs
     s, h, pk = jdc.g1_pack(sigs), jdc.g1_pack(hs), jbls.pack_g2_affine(pks)
-    want = dict(zip(STAGES, jax_fn(s, h, pk)))
     args = (tree_from_numpy(s, "cpu"), tree_from_numpy(h, "cpu"),
             tree_from_numpy(pk, "cpu"), groups)
     shape = (len(sigs), groups)
@@ -83,38 +126,28 @@ def _compare(jax_fn, sigs, hs, pks, groups, guard=False):
         got = tbls.batch_verify_grouped_stages(*args)
     _WARM.append(shape)
     for name in STAGES:
-        w = tree_leaves(jax.tree.map(np.asarray, want[name]))
+        w = want[name]
         g = tree_leaves(tree_to_numpy(got[name]))
         assert len(w) == len(g), name
         for x, y in zip(w, g):
             np.testing.assert_array_equal(x.astype(np.int64), y.astype(np.int64),
                                           err_msg=name)
-    return bool(np.asarray(want["ok"])[0])
+    return bool(want["ok"][0][0])
 
 
 @pytest.fixture(scope="module")
 def committee():
-    sk1, sk2 = 1234567, 7654321
-    pk1 = jhc.G2.mul(sk1, G2_GENERATOR)
-    pk2 = jhc.G2.mul(sk2, G2_GENERATOR)
-    hs = [jhc.G1.mul(3 + i, G1_GENERATOR) for i in range(8)]
-    sigs = [jhc.G1.mul(sk1, h) for h in hs[:4]] + [
-        jhc.G1.mul(sk2, h) for h in hs[4:]
-    ]
-    return sigs, hs, [pk1, pk2]
+    return _committee()
 
 
 @pytest.mark.parametrize("tampered", [False, True])
-def test_grouped_verify_two_groups_matches_jax(committee, tampered):
-    sigs, hs, pks = committee
-    if tampered:
-        sigs = sigs[:3] + [jhc.G1.mul(999, hs[3])] + sigs[4:]
-    assert _compare(_jax_stages_2, sigs, hs, pks, 2, guard=tampered) is (not tampered)
+def test_grouped_verify_two_groups_matches_jax(tampered):
+    case = "two_groups_tampered" if tampered else "two_groups"
+    assert _compare(case, guard=tampered) is (not tampered)
 
 
-def test_grouped_verify_one_group_matches_jax(committee):
-    sigs, hs, pks = committee
-    assert _compare(_jax_stages_1, sigs[:4], hs[:4], pks[:1], 1) is True
+def test_grouped_verify_one_group_matches_jax():
+    assert _compare("one_group") is True
 
 
 def test_hashes_pairs_and_aggregates_on_cpu(committee):

@@ -1,7 +1,8 @@
 """The port's strict per-epoch batch verification,
 celo_bls_snark_tpu_torch/ops/bls.py::strict_batch_verify_device, against
-the JAX package's on the same inputs (equal per-epoch verdicts), and the
-port's exponent sizing (batch.py) against the JAX package's bls/batch.py."""
+the JAX package's on the same inputs (equal per-epoch verdicts, recorded
+by tests/jax_answers.py), and the port's exponent sizing (batch.py) against
+the JAX package's bls/batch.py."""
 
 import random
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_answers
 from celo_bls_snark_tpu.bls import batch as jbatch
 from celo_bls_snark_tpu.ops import bls as jbls
 from celo_bls_snark_tpu.ops import curve as jdc
@@ -35,10 +37,10 @@ def test_byte_count_equals_jax(size):
     assert tbatch.SECURITY_BOUND == jbatch.SECURITY_BOUND
 
 
-def test_strict_batch_verify_flips_the_bad_epoch():
+def bad_epoch_inputs():
     """G = 3 epochs x V = 4 validators (the same validators every epoch,
     per-epoch extra_data, composite hashes), one planted bad signature in
-    epoch 1: [True, False, True] in both packages."""
+    epoch 1."""
     G, V = 3, 4
     rng = random.Random(11)
     h2c = composite_hash_to_g1_cip22()
@@ -50,13 +52,31 @@ def test_strict_batch_verify_flips_the_bad_epoch():
     # 2-byte exponents (4 windows) keep the JAX package's CPU compile short;
     # chip_smoke.py runs the 17 bytes of byte_count_from_target_batch_size
     digits = tmsm.window_digits([rng.randrange(1 << 16) for _ in range(G * V)], 16, 4)
+    return digits, sigs, pks, hs, G
+
+
+def bad_epoch_jax(inputs):
+    digits, sigs, pks, hs, G = inputs
+    ok = jax.jit(jbls.strict_batch_verify_device, static_argnums=(4, 5))(
+        jnp.asarray(digits), jdc.g1_pack(sigs), jdc.g2_pack(pks),
+        jax.tree.map(jnp.asarray, jbls.pack_g1_affine(hs)), G, 4)
+    return {"ok": [np.asarray(ok)]}
+
+
+# the JAX package's verdicts, recorded (tests/jax_answers.py): its jitted
+# strict_batch_verify_device compiles for about 260 s on the CPU
+REC = jax_answers.Recordings(__name__, {"bad_epoch": (bad_epoch_inputs, bad_epoch_jax)})
+
+
+def test_strict_batch_verify_flips_the_bad_epoch():
+    """[True, False, True] in both packages."""
+    inputs = bad_epoch_inputs()
+    digits, sigs, pks, hs, G = inputs
     got = tbls.strict_batch_verify_device(
         torch.from_numpy(digits), tdc.g1_pack(sigs, "cpu"), tdc.g2_pack(pks, "cpu"),
         tbls.pack_g1_affine(hs, "cpu"), G, c=4)
-    want = jax.jit(jbls.strict_batch_verify_device, static_argnums=(4, 5))(
-        jnp.asarray(digits), jdc.g1_pack(sigs), jdc.g2_pack(pks),
-        jax.tree.map(jnp.asarray, jbls.pack_g1_affine(hs)), G, 4)
-    assert got.tolist() == np.asarray(want).tolist() == [True, False, True]
+    want = REC.load("bad_epoch", inputs)["ok"][0].tolist()
+    assert got.tolist() == want == [True, False, True]
 
 
 def test_interleave():

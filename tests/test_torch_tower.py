@@ -2,12 +2,14 @@
 limb for limb against the JAX package's ops/tower.py on the CPU, on the
 same packed inputs, and against the hostmath Fq12 oracle."""
 
+import functools
 import random
 
 import jax
 import numpy as np
 import pytest
 
+import jax_answers
 from celo_bls_snark_tpu.hostmath import fq12 as hfq12
 from celo_bls_snark_tpu.ops import tower as jtw
 from celo_bls_snark_tpu.ops.field import FQ
@@ -52,6 +54,7 @@ def unpack_f12(tree):
 
 
 def assert_same(jax_tree, torch_tree):
+    """Leaf for leaf: a JAX tree, or the leaves a recording holds."""
     w = tree_leaves(jax.tree.map(np.asarray, jax_tree))
     g = tree_leaves(tree_to_numpy(torch_tree))
     assert len(w) == len(g)
@@ -59,8 +62,8 @@ def assert_same(jax_tree, torch_tree):
         np.testing.assert_array_equal(y, x)
 
 
-@pytest.fixture(scope="module")
-def inputs():
+@functools.cache
+def _inputs():
     rng = random.Random(20261016)
     a, b = rand_f12(rng), rand_f12(rng)
     line = [tuple((rng.randrange(P), rng.randrange(P)) for _ in range(3))
@@ -71,15 +74,51 @@ def inputs():
     return a, b, pack_f12(a), pack_f12(b), cs
 
 
-@pytest.mark.parametrize("op", ["f12_mul", "f12_sq", "f12_cyclo_sq", "f12_frob",
-                                "f12_conj", "f12_inv"])
-def test_f12_ops_limb_exact(inputs, op):
-    _, _, a, b, _ = inputs
+@pytest.fixture(scope="module")
+def inputs():
+    return _inputs()
+
+
+F12_OPS = ["f12_mul", "f12_sq", "f12_cyclo_sq", "f12_frob", "f12_conj", "f12_inv"]
+
+
+def f12_op_inputs(op):
+    _, _, a, b, _ = _inputs()
+    return op, a, b
+
+
+def f12_op_jax(inputs):
+    op, a, b = inputs
+    out = jtw.f12_mul(a, b) if op == "f12_mul" else getattr(jtw, op)(a)
+    return {"out": tree_leaves(jax.tree.map(np.asarray, out))}
+
+
+def f2_ops_inputs():
+    _, _, a, b, _ = _inputs()
+    return a[0][0], b[1][2], a[1]
+
+
+def f2_ops_jax(inputs):
+    x, y, f6 = inputs
+    outs = {"f2_mul": jtw.f2_mul(x, y), "f2_sq": jtw.f2_sq(x), "f2_inv": jtw.f2_inv(x),
+            "f6_inv": jtw.f6_inv(f6)}
+    return {k: tree_leaves(jax.tree.map(np.asarray, v)) for k, v in outs.items()}
+
+
+# the JAX package's inversions, recorded (tests/jax_answers.py): they compile
+# for 30-70 s on the CPU; the other Fq12 ops, about 12 s each, stay live
+REC = jax_answers.Recordings(__name__, {
+    "f12_inv": (functools.partial(f12_op_inputs, "f12_inv"), f12_op_jax),
+    "f2_ops": (f2_ops_inputs, f2_ops_jax)})
+
+
+@pytest.mark.parametrize("op", F12_OPS)
+def test_f12_ops_limb_exact(op):
+    inputs = f12_op_inputs(op)
+    _, a, b = inputs
     ta, tb = tree_from_numpy(a, "cpu"), tree_from_numpy(b, "cpu")
-    if op == "f12_mul":
-        assert_same(jtw.f12_mul(a, b), ttw.f12_mul(ta, tb))
-    else:
-        assert_same(getattr(jtw, op)(a), getattr(ttw, op)(ta))
+    got = ttw.f12_mul(ta, tb) if op == "f12_mul" else getattr(ttw, op)(ta)
+    assert_same(REC.answers(op, inputs, f12_op_jax)["out"], got)
 
 
 def test_f12_mul_line_limb_exact(inputs):
@@ -100,11 +139,13 @@ def test_f12_against_oracle_and_is_one(inputs):
     assert ttw.f12_is_one(ttw.f12_ones((B,), "cpu")).tolist() == [True] * B
 
 
-def test_f2_ops_limb_exact(inputs):
-    _, _, a, b, _ = inputs
-    x, y = a[0][0], b[1][2]
+def test_f2_ops_limb_exact():
+    inputs = f2_ops_inputs()
+    x, y, f6 = inputs
+    want = REC.load("f2_ops", inputs)
     t = lambda v: tree_from_numpy(v, "cpu")  # noqa: E731
-    assert_same(jtw.f2_mul(x, y), ttw.f2_mul(t(x), t(y)))
-    assert_same(jtw.f2_sq(x), ttw.f2_sq(t(x)))
-    assert_same(jtw.f2_inv(x), ttw.f2_inv(t(x)))
-    assert_same(jtw.f6_inv(a[1]), ttw.f6_inv(t(a[1])))
+    assert_same(want["f2_mul"], ttw.f2_mul(t(x), t(y)))
+    assert_same(want["f2_sq"], ttw.f2_sq(t(x)))
+    assert_same(want["f2_inv"], ttw.f2_inv(t(x)))
+    assert_same(want["f6_inv"], ttw.f6_inv(t(f6)))
+
